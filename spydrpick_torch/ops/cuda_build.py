@@ -1,0 +1,90 @@
+"""Build and load the port's CUDA kernels (``spydrpick_torch/csrc``).
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
+shared library with a plain C interface (no PyTorch headers, so the
+build takes seconds), at the first kernel launch of a process, into
+``build/kernels/`` of the checkout.  ``ctypes`` loads it; the wrappers in
+``ops/mi_kernels.py`` and ``ops/compact.py`` pass device pointers and
+PyTorch's current CUDA stream.  A failed build raises with the
+compiler's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import pathlib
+import shutil
+import subprocess
+
+CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
+LIB_NAME = "libspydrpick_torch_kernels.so"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lib = None
+
+_vp, _i, _ll, _d, _f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                        ctypes.c_double, ctypes.c_float)
+_SIGNATURES = {
+    # dtype, xi_hi, xi_lo, xj, ldi, ldj, ipf, jpf, out, ldo, S, TI, TJ,
+    # bw_i, bw_j, n_passes, m0, m1, acc_scale, pc, stream
+    "spk_mi_tile_single": [_i, _vp, _vp, _vp, _ll, _ll, _vp, _vp, _vp, _ll,
+                           _i, _i, _i, _i, _i, _i, _d, _d, _f, _f, _vp],
+    # mask, mi, wog, omi, oj, owog, counts, R, W, stream
+    "spk_route_rows": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _vp],
+}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    return os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+
+
+def build() -> tuple[pathlib.Path, str]:
+    """Compile the kernels unless the library is newer than every source.
+
+    Returns (library path, compiler report); the report holds ptxas's
+    per-kernel registers, shared memory and spills, and is empty when
+    the existing library was reused."""
+    lib = BUILD_DIR / LIB_NAME
+    srcs = sorted(CSRC.glob("*.cu"))
+    newest = max(p.stat().st_mtime for p in srcs + sorted(CSRC.glob("*.cuh")))
+    if lib.exists() and lib.stat().st_mtime >= newest:
+        return lib, ""
+    nvcc = nvcc_path()
+    if not os.path.exists(nvcc):
+        raise RuntimeError(f"nvcc not found (looked on PATH and at {nvcc}); the CUDA "
+                           "kernels are compiled from spydrpick_torch/csrc at first use")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f"{LIB_NAME}.{os.getpid()}.tmp"
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed (rc={res.returncode}): {' '.join(cmd)}\n"
+            f"{res.stdout}{res.stderr}")
+    os.replace(tmp, lib)  # atomic: concurrent builders never load a partial file
+    return lib, res.stdout + res.stderr
+
+
+def load() -> ctypes.CDLL:
+    """The kernels library, built on first use."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()[0]))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def check(rc: int, name: str) -> None:
+    """Raise on a non-zero cudaGetLastError() returned by a launch."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")

@@ -1,0 +1,183 @@
+"""Kernel K1: the all-pairs MI tile (port of
+spydrpick_tpu/ops/mi_pallas.py:mi_tile_pallas_single).
+
+``mi_tile_single`` computes the (TI, TJ) f32 with-gaps MI of every
+column pair from slab-layout one-hot operands: the weighted crosstable
+C = sum_passes mult * (Xi^T Xj) over samples, then f32(C) * acc_scale,
+then the fused pseudocount + entropy epilogue of ``_mi_from_block``.
+On CUDA tensors it launches the hand-written kernel in
+``csrc/mi_tile.cu`` (design notes there); on CPU tensors it runs
+``mi_tile_single_plain``, the same function in plain PyTorch.  One
+launch may cover a whole block-row (TJ = every column from the diagonal
+tile on): it is the same function on a wider tile.
+
+Operand modes (the engine's int8-mode rule picks one,
+engine/solver.py:build_device_data):
+  * int8, 1 pass: unit weights, exact 0/1 counts;
+  * int8, 2 passes x (128, 1): fixed14 weight digits, int32 counts
+    scaled by acc_scale = 1/int8_scale;
+  * bf16, 1 or 2 passes (hi/lo split of f32 weights), f32 accumulation.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from spydrpick_torch.ops import cuda_build
+
+N_STATES = 5
+BW = 128  # slab block width (mi_pallas.BI/BJ)
+
+
+def to_slab(x: torch.Tensor, bw: int) -> torch.Tensor:
+    """Interleaved minor axis (..., n*5) -> slab layout: within each
+    bw-wide column block, state t of column c sits at t*bw + c
+    (mi_pallas.py:to_slab)."""
+    *lead, m = x.shape
+    nb = m // (N_STATES * bw)
+    if nb * N_STATES * bw != m:
+        raise ValueError(f"to_slab: width {m} is not a multiple of 5*{bw}")
+    return x.reshape(*lead, nb, bw, N_STATES).transpose(-1, -2).reshape(*lead, m)
+
+
+def split_bf16(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """f32 -> (hi, lo) bf16 pair with hi + lo ~ x (mi_pallas.py:split_bf16);
+    eager PyTorch needs no barrier against x - f32(bf16(x)) folding."""
+    hi = x.to(torch.bfloat16)
+    lo = (x - hi.to(torch.float32)).to(torch.bfloat16)
+    return hi, lo
+
+
+def _ln_pos(x: torch.Tensor) -> torch.Tensor:
+    return torch.log(torch.where(x > 0, x, 1.0))
+
+
+def _sum_states(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum a size-5 state axis in _sum_istates/_sum_jstates order."""
+    s = lambda k: x.select(dim, k)
+    return ((s(0) + s(1)) + (s(2) + s(3))) + s(4)
+
+
+def mi_from_block_plain(C: torch.Tensor, ipf: torch.Tensor, jpf: torch.Tensor,
+                        pc: float, bw: int) -> torch.Tensor:
+    """(TI, TJ) MI from a (TI*5, TJ*5) slab crosstable, op for op with
+    mi_pallas.py:_mi_from_block over every bw x bw block at once."""
+    TI5, TJ5 = C.shape
+    nbi, nbj = TI5 // (N_STATES * bw), TJ5 // (N_STATES * bw)
+    C = C.reshape(nbi, N_STATES, bw, nbj, N_STATES, bw)
+    ipc = ipf.reshape(nbi, N_STATES, bw, 1, 1, 1)
+    jrow = jpf.reshape(1, 1, 1, nbj, N_STATES, bw)
+    pm = ipc * jrow
+    A = C + pc * pm
+    lnA = _ln_pos(A)
+    G1 = _sum_states(_sum_states(A * lnA * pm, 1), 3)
+    B = _sum_states(A * jrow, 4)                  # (nbi, 5, bw, nbj, bw)
+    R = _sum_states(A, 1)                         # (nbi, bw, nbj, 5, bw) full row sums
+    lnR = _ln_pos(R)
+    RJ = R * jrow.reshape(1, 1, nbj, N_STATES, bw)
+    Gi = _sum_states(RJ * lnR, 3)
+    Si = _sum_states(RJ, 3)
+    ipb = ipc.reshape(nbi, N_STATES, bw, 1, 1)
+    Z = _sum_states(B * ipb, 1)                   # (nbi, bw, nbj, bw)
+    lnB = _ln_pos(B)
+    Gj = _sum_states(B * lnB * ipb, 1)
+    invZ = 1.0 / torch.clamp(Z, min=torch.finfo(torch.float32).tiny)
+    lnZ = _ln_pos(Z)
+    jointH = (G1 - lnZ * Z) * invZ
+    icondH = (Gi - lnZ * Si) * invZ
+    jcondH = (Gj - lnZ * Z) * invZ                # S_j == Z
+    return (jointH - icondH - jcondH).reshape(nbi * bw, nbj * bw)
+
+
+def _passes(xi_hi, xi_lo, pass_mults):
+    xs = (xi_hi,) if xi_lo is None else (xi_hi, xi_lo)
+    if len(pass_mults) < len(xs):
+        raise ValueError(f"need {len(xs)} pass multipliers, got {pass_mults}")
+    return xs, tuple(pass_mults[: len(xs)])
+
+
+def mi_tile_single_plain(xi_hi, xi_lo, xj, ipf, jpf, pseudocount: float = 0.5,
+                         bw: int = BW, pass_mults: tuple = (1, 1),
+                         acc_scale: float = 1.0) -> torch.Tensor:
+    """Plain-PyTorch twin of the kernel (the CPU path, and the card-side
+    reference).  int8 operands: the exact integer product, taken in
+    float64 (exact: counts < 2^53; integer matmul does not exist on
+    CUDA) and cast to int32, then round-to-nearest to f32.  bf16
+    operands: f32 products of the exact f32 upcasts."""
+    xs, mults = _passes(xi_hi, xi_lo, pass_mults)
+    f32 = torch.float32
+    if xi_hi.dtype == torch.int8:
+        xjd = xj.to(torch.float64)
+        acc = None
+        for m, x in zip(mults, xs):
+            d = x.to(torch.float64).T @ xjd
+            if m != 1:
+                d = d * m
+            acc = d if acc is None else acc + d
+        C = acc.to(torch.int32).to(f32)
+    else:
+        xjf = xj.to(f32)
+        C = None
+        for m, x in zip(mults, xs):
+            d = x.to(f32).T @ xjf
+            if m != 1:
+                d = d * torch.tensor(m, dtype=f32)
+            C = d if C is None else C + d
+    if acc_scale != 1.0:
+        C = C * torch.tensor(acc_scale, dtype=f32, device=C.device)
+    return mi_from_block_plain(C, ipf.to(f32), jpf.to(f32), pseudocount, bw)
+
+
+def mi_tile_single(xi_hi, xi_lo, xj, ipf, jpf, pseudocount: float = 0.5,
+                   bw: int = BW, pass_mults: tuple = (1, 1),
+                   acc_scale: float = 1.0) -> torch.Tensor:
+    """(TI, TJ) f32 MI of a tile (see module docstring).  Operands are
+    (S, TI*5) / (S, TJ*5) slab one-hots with unit column stride (row
+    strides may exceed the width: column slices of the alignment's
+    one-hot pass without a copy); ipf/jpf are (TI*5,)/(TJ*5,) slab
+    presence.  ``xi_lo=None`` selects the single-pass mode."""
+    if xj.device.type == "cpu":
+        return mi_tile_single_plain(xi_hi, xi_lo, xj, ipf, jpf, pseudocount,
+                                    bw, pass_mults, acc_scale)
+    if not xj.is_cuda:
+        raise ValueError(f"mi_tile_single: unsupported device {xj.device}")
+    xs, mults = _passes(xi_hi, xi_lo, pass_mults)
+    S, TI5 = xi_hi.shape
+    TJ5 = xj.shape[1]
+    TI, TJ = TI5 // N_STATES, TJ5 // N_STATES
+    if xi_hi.dtype not in (torch.int8, torch.bfloat16):
+        raise ValueError(f"mi_tile_single: operand dtype {xi_hi.dtype}")
+    for x in xs + (xj,):
+        if x.dtype != xi_hi.dtype or x.device != xj.device or x.dim() != 2:
+            raise ValueError("mi_tile_single: operands differ in dtype, device or rank")
+        if x.shape[0] != S or x.stride(1) != 1:
+            raise ValueError("mi_tile_single: operands need S rows and unit column stride")
+    if xi_lo is not None and (xi_lo.shape != xi_hi.shape
+                              or xi_lo.stride(0) != xi_hi.stride(0)):
+        raise ValueError("mi_tile_single: xi_hi and xi_lo need one shape and row stride")
+    if TI5 != TI * N_STATES or TJ5 != TJ * N_STATES or TI % bw or TJ % bw:
+        raise ValueError(f"mi_tile_single: tile ({TI}, {TJ}) not in {bw}-column slab blocks")
+    for p, n in ((ipf, TI5), (jpf, TJ5)):
+        if (p.dtype != torch.float32 or p.device != xj.device or p.shape != (n,)
+                or not p.is_contiguous()):
+            raise ValueError("mi_tile_single: presence must be contiguous f32 (T*5,)")
+    if xi_hi.dtype == torch.int8 and any(m != int(m) for m in mults):
+        raise ValueError(f"mi_tile_single: int8 passes need integer multipliers {mults}")
+    out = torch.empty((TI, TJ), dtype=torch.float32, device=xj.device)
+    if out.numel() == 0:
+        return out
+    lib = cuda_build.load()
+    stream = torch.cuda.current_stream(xj.device).cuda_stream
+    rc = lib.spk_mi_tile_single(
+        0 if xi_hi.dtype == torch.int8 else 1,
+        xi_hi.data_ptr(), xs[-1].data_ptr(), xj.data_ptr(),
+        xi_hi.stride(0), xj.stride(0), ipf.data_ptr(), jpf.data_ptr(),
+        out.data_ptr(), out.stride(0), S, TI, TJ, bw, bw, len(xs),
+        float(mults[0]), float(mults[-1]), float(acc_scale), float(pseudocount),
+        stream)
+    cuda_build.check(rc, "mi_tile_single")
+    mi_tile_single.launches += 1
+    return out
+
+
+mi_tile_single.launches = 0  # kernel launches (CPU calls do not count)

@@ -1,0 +1,304 @@
+"""End-to-end GWES pipeline on PyTorch (port of spydrpick_tpu/pipeline.py).
+
+Stages: load -> include/exclude trim -> position filter -> sample trim ->
+sample weights -> MI save threshold (auto: tournament) -> all-pairs MI
+sweep -> Tukey outlier thresholds -> sort -> ARACNE -> couplings/outlier
+outputs.  Host stages reuse the reference's jax-free modules; the device
+stages run on ``spydrpick_torch.device.default_device()``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import sys
+import time
+
+import numpy as np
+
+from spydrpick_tpu.core.alignment import Alignment
+from spydrpick_tpu.core.filter import FilterParams, filter_list
+from spydrpick_tpu.io.fasta import read_fasta, write_fasta
+from spydrpick_tpu.io.loci import parse_loci_list
+from spydrpick_tpu.io.writers import (
+    write_couplings,
+    write_distance_matrix,
+    write_outliers,
+    write_sample_weights,
+    write_state_frequencies,
+)
+from spydrpick_tpu.utils.stopwatch import Stopwatch
+from spydrpick_tpu.utils.uniquefile import unique_path
+from spydrpick_torch.core.weights import (
+    DEFAULT_REWEIGHTING_THRESHOLD,
+    cache_sample_weights,
+    hamming_distance_matrix,
+)
+from spydrpick_torch.device import default_device, synchronize
+from spydrpick_torch.engine.aracne import DEFAULT_EDGE_THRESHOLD, run_aracne
+from spydrpick_torch.engine.outliers import outlier_thresholds
+from spydrpick_torch.engine.solver import EdgeSet, EngineConfig, MIEngine
+from spydrpick_torch.engine.threshold import default_mi_values, determine_mi_threshold
+
+
+@dataclasses.dataclass
+class PipelineOptions:
+    """The reference's three flag groups (SpydrPick / apegrunt / ARACNE)
+    plus --seed and the engine options this port runs."""
+
+    alignmentfile: str = ""
+    mi_threshold: float = -1.0
+    mi_values: int = 0
+    mi_pseudocount: float = 0.5
+    mi_threshold_iterations: int = 10
+    mi_threshold_pairs: int = 0
+    ld_threshold: int = 0
+    no_aracne: bool = False
+    verbose: bool = False
+    maf_threshold: float = 0.01
+    gap_threshold: float = 0.15
+    no_filter_alignment: bool = False
+    include_list: str | None = None
+    exclude_list: str | None = None
+    sample_list: str | None = None
+    mappings_list: str | None = None
+    genome_size: int | None = None
+    input_indexing_base: int = 1
+    output_indexing_base: int = 1
+    linear_genome: bool = False
+    sample_reweighting_threshold: float = DEFAULT_REWEIGHTING_THRESHOLD
+    no_sample_reweighting: bool = False
+    sample_weights: str | None = None
+    output_state_frequencies: bool = False
+    output_sample_weights: bool = False
+    output_sample_distance_matrix: bool = False
+    output_alignment: bool = False
+    output_filtered_alignment: bool = False
+    aracne_edge_threshold: float = DEFAULT_EDGE_THRESHOLD
+    seed: int = 42
+    tile: int = 512
+    mxu_int8: str = "auto"
+    output_dir: str = "."
+    profile_dir: str | None = None      # torch.profiler trace of the sweep
+
+
+@dataclasses.dataclass
+class PipelineResult:
+    alignment: Alignment
+    edges: EdgeSet
+    flags: np.ndarray
+    mi_threshold: float
+    outlier_threshold: float
+    extreme_outlier_threshold: float
+    couplings_path: str | None = None
+    outliers_path: str | None = None
+
+
+def _log(opts, *msg):
+    if opts.verbose:
+        print("spydrpick-torch:", *msg, file=sys.stdout, flush=True)
+
+
+def load_and_preprocess(opts: PipelineOptions) -> Alignment:
+    """Load, trim, filter and weight the alignment (SpydrPick.cpp:163-333);
+    the same steps as the reference's load_and_preprocess."""
+    mappings = (
+        parse_loci_list(opts.mappings_list, opts.input_indexing_base)
+        if opts.mappings_list
+        else None
+    )
+    alignment = read_fasta(opts.alignmentfile, mappings=mappings, genome_size=opts.genome_size)
+    _log(opts, f'alignment "{alignment.id_string}": '
+         f"{alignment.n_samples} samples x {alignment.n_loci} loci")
+
+    if opts.output_alignment:
+        write_fasta(unique_path(f"{opts.output_dir}/{alignment.id_string}.input.fasta"),
+                    alignment)
+
+    if opts.include_list:
+        incl = set(parse_loci_list(opts.include_list, opts.input_indexing_base).tolist())
+        keep = np.array(
+            [k for k, t in enumerate(alignment.translation) if t in incl], dtype=np.int64
+        )
+        alignment = alignment.subset(keep)
+        _log(opts, f"include list -> {alignment.n_loci} loci")
+    if opts.exclude_list:
+        excl = set(parse_loci_list(opts.exclude_list, opts.input_indexing_base).tolist())
+        keep = np.array(
+            [k for k, t in enumerate(alignment.translation) if t not in excl], dtype=np.int64
+        )
+        alignment = alignment.subset(keep)
+        _log(opts, f"exclude list -> {alignment.n_loci} loci")
+
+    if not opts.no_filter_alignment:
+        keep = filter_list(alignment, FilterParams(opts.maf_threshold, opts.gap_threshold))
+        _log(opts, f"apply filter rules.. {len(keep)} positions fulfill filter criteria")
+        if len(keep) == 0:
+            _log(opts, "nothing to do")
+            raise SystemExit(0)
+        if len(keep) != alignment.n_loci:
+            alignment = alignment.subset(keep)
+        if opts.verbose:
+            print(alignment.statistics_string(), flush=True)
+
+    if opts.sample_list:
+        alignment = alignment.subsample(
+            parse_loci_list(opts.sample_list, opts.input_indexing_base))
+        _log(opts, f"sample list -> {alignment.n_samples} samples")
+
+    alignment = cache_sample_weights(
+        alignment,
+        weights_file=opts.sample_weights,
+        no_reweighting=opts.no_sample_reweighting,
+        threshold=opts.sample_reweighting_threshold,
+    )
+    _log(opts, f"effective sample size = {alignment.effective_size:.2f}")
+
+    if opts.output_sample_weights:
+        with open(unique_path(f"{opts.output_dir}/{alignment.id_string}.weights"), "w") as f:
+            write_sample_weights(f, alignment)
+    if opts.output_filtered_alignment:
+        write_fasta(unique_path(f"{opts.output_dir}/{alignment.id_string}.filtered.fasta"),
+                    alignment)
+    if opts.output_state_frequencies:
+        with open(
+            unique_path(f"{opts.output_dir}/{alignment.id_string}.state_frequencies"), "w"
+        ) as f:
+            write_state_frequencies(f, alignment, opts.output_indexing_base)
+    if opts.output_sample_distance_matrix:
+        with open(
+            unique_path(f"{opts.output_dir}/{alignment.id_string}.distance_matrix"), "w"
+        ) as f:
+            write_distance_matrix(f, hamming_distance_matrix(alignment))
+    return alignment
+
+
+def run_pipeline(opts: PipelineOptions, write_outputs: bool = True,
+                 timings: dict | None = None) -> PipelineResult:
+    """``timings`` (optional dict) receives per-stage wall seconds:
+    preprocess_s, engine_build_s, threshold_s, sweep_s (with the engine's
+    phases under sweep_phases), sort_s, aracne_s (aracne_phases), write_s
+    and total_s.  Each stage boundary waits for the device first, so a
+    stage's time includes its device work."""
+    os.makedirs(opts.output_dir, exist_ok=True)
+    tm = timings if timings is not None else {}
+    device = default_device()
+
+    def _stage(name: str, t0: float) -> float:
+        synchronize(device)
+        t1 = time.perf_counter()
+        tm[name] = t1 - t0
+        _log(opts, f"stage time: {name} {tm[name]:.2f}s")
+        return t1
+
+    timer = Stopwatch(sys.stdout if opts.verbose else None).start()
+    t_st = time.perf_counter()
+    alignment = load_and_preprocess(opts)
+    t_st = _stage("preprocess_s", t_st)
+
+    config = EngineConfig(
+        tile=opts.tile,
+        mxu_int8=opts.mxu_int8,
+        pseudocount=opts.mi_pseudocount,
+        ld_threshold=opts.ld_threshold,
+        linear_genome=opts.linear_genome,
+    )
+    engine = MIEngine(alignment, config, device=device)
+    _log(opts, f"engine on {device}: int8 mode {engine.statics.int8_mode}, "
+         f"{engine.S} sample rows x {engine.Lp} columns")
+    t_st = _stage("engine_build_s", t_st)
+
+    mi_threshold = opts.mi_threshold
+    if mi_threshold < 0:
+        top_pairs = default_mi_values(alignment.n_loci, opts.mi_values)
+        _log(opts, f"determine MI threshold for saving approx. {top_pairs} top pairs")
+        mi_threshold = determine_mi_threshold(
+            engine, top_pairs,
+            threshold_pairs=opts.mi_threshold_pairs,
+            iterations=opts.mi_threshold_iterations,
+            seed=opts.seed,
+            verbose_out=sys.stdout if opts.verbose else None,
+        )
+        _log(opts, f"MI save threshold = {mi_threshold:.6f}")
+    else:
+        _log(opts, f"user-defined MI save threshold = {mi_threshold:.6f}")
+    t_st = _stage("threshold_s", t_st)
+
+    def progress(lo, hi, n_new, dt):
+        _log(opts, f"  {lo + 1}-{hi} / {alignment.n_loci} ({n_new} new edges) time={dt:.3f}s")
+
+    from spydrpick_torch.utils.profiling import profile_trace
+
+    sweep_phases: dict = {}
+    with profile_trace(opts.profile_dir):
+        edges = engine.sweep(mi_threshold, progress=progress if opts.verbose else None,
+                             timings=sweep_phases)
+    tm["sweep_phases"] = sweep_phases
+    t_st = _stage("sweep_s", t_st)
+    _log(opts, f"{edges.n_edges} edges stored")
+
+    outlier_thr, extreme_thr = outlier_thresholds(edges.colmax)
+    _log(opts, f"outlier threshold={outlier_thr:.6f}")
+    _log(opts, f"extreme outlier threshold={extreme_thr:.6f}")
+
+    edges = edges.sort_desc()
+    t_st = _stage("sort_s", t_st)
+
+    if not opts.no_aracne and edges.n_edges:
+        _log(opts, "run ARACNE")
+        aracne_t: dict = {}
+        flags = run_aracne(
+            edges.ipos, edges.jpos, edges.mi, opts.aracne_edge_threshold,
+            timings=aracne_t,
+            verbose_out=sys.stdout if opts.verbose else None,
+        )
+        tm["aracne_phases"] = aracne_t
+    else:
+        flags = np.zeros(edges.n_edges, dtype=np.uint8)
+    t_st = _stage("aracne_s", t_st)
+
+    result = PipelineResult(
+        alignment=alignment,
+        edges=edges,
+        flags=flags,
+        mi_threshold=mi_threshold,
+        outlier_threshold=outlier_thr,
+        extreme_outlier_threshold=extreme_thr,
+    )
+    if write_outputs:
+        _write_outputs(opts, result)
+        _stage("write_s", t_st)
+
+    tm["total_s"] = timer.stop()
+    _log(opts, f"analysis completed in {timer}")
+    return result
+
+
+def _write_outputs(opts: PipelineOptions, res: PipelineResult) -> None:
+    """Couplings + outliers + outlier-node FASTA (SpydrPick.cpp:423-510)."""
+    al = res.alignment
+    base = opts.output_indexing_base
+    stem = f"{opts.output_dir}/{al.id_string}.{al.size_string()}.spydrpick_couplings"
+
+    couplings_path = unique_path(f"{stem}.{base}-based.{res.edges.n_edges}edges")
+    with open(couplings_path, "w") as f:
+        write_couplings(f, res.edges, res.flags, al, base, opts.linear_genome)
+    res.couplings_path = str(couplings_path)
+    _log(opts, f'wrote network ({res.edges.n_edges} edges) to "{couplings_path}"')
+
+    outliers_path = unique_path(f"{stem}.{base}-based.outliers")
+    with open(outliers_path, "w") as f:
+        n_rows = write_outliers(
+            f, res.edges, res.flags, al,
+            res.outlier_threshold, res.extreme_outlier_threshold,
+            opts.ld_threshold, base, opts.linear_genome,
+        )
+    res.outliers_path = str(outliers_path)
+    _log(opts, f'wrote outlier network ({n_rows} rows) to "{outliers_path}"')
+
+    mask = res.edges.mi >= res.outlier_threshold
+    nodes = np.unique(np.concatenate([res.edges.ipos[mask], res.edges.jpos[mask]]))
+    _log(opts, f"extract nodes involved in outlier edges: found {len(nodes)} nodes")
+    if 0 < len(nodes) < al.n_loci:
+        write_fasta(unique_path(f"{opts.output_dir}/{al.id_string}.outlier_nodes.fasta"),
+                    al.subset(nodes))

@@ -1,0 +1,134 @@
+"""The port's CUDA kernels and engine on the card, against their plain
+PyTorch versions and the CPU engine.  Every test here needs an NVIDIA GPU
+and skips without one.  This file imports no jax, so that it runs where
+only PyTorch is installed:
+
+    python -m pytest tests/test_torch_gpu.py --noconftest -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from spydrpick_tpu.core.alignment import Alignment
+from spydrpick_torch.core.weights import sample_match_counts
+from spydrpick_torch.engine.solver import EngineConfig, MIEngine
+from spydrpick_torch.ops.compact import route_rows, route_rows_plain
+from spydrpick_torch.ops.mi_kernels import BW, mi_tile_single, mi_tile_single_plain, split_bf16, to_slab
+
+# the kernel and its plain version build the same integer (or bf16-exact)
+# crosstables; only f32 log and sum order may differ
+TOL = 1e-5
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def k1_operands(mode, S, TI, TJ, dev, seed=3):
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 5, size=(S, TJ))
+    oh = np.zeros((S, TJ, 5), np.int8)
+    np.put_along_axis(oh, codes[:, :, None], 1, axis=2)
+    xj = to_slab(torch.from_numpy(oh.reshape(S, TJ * 5)), BW).to(dev)
+    pf = to_slab(torch.from_numpy((oh.sum(0) > 0).astype(np.float32).reshape(-1)), BW).to(dev)
+    xi = xj[:, :TI * 5]
+    w = torch.from_numpy((rng.random(S) * 0.9 + 0.1).astype(np.float32)).to(dev)
+    if mode == "unit":
+        return xi, None, xj, pf[:TI * 5], pf, (1,), 1.0
+    if mode == "fixed14":
+        q = 16383.0 / float(w.max())
+        w_q = torch.clamp(torch.round(w * torch.tensor(q, device=dev)), 0, 16383).to(torch.int32)
+        x32 = xi.to(torch.int32)
+        return ((x32 * (w_q // 128)[:, None]).to(torch.int8),
+                (x32 * (w_q % 128)[:, None]).to(torch.int8), xj, pf[:TI * 5], pf,
+                (128, 1), 1.0 / q)
+    hi, lo = split_bf16(xi.to(torch.float32) * w[:, None])
+    return hi, lo, xj.to(torch.bfloat16), pf[:TI * 5], pf, (1, 1), 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["unit", "fixed14", "bf16"])
+def test_cuda_k1_matches_plain(cuda_device, mode):
+    hi, lo, xj, ipf, jpf, mults, scale = k1_operands(mode, 200, 256, 640, cuda_device)
+    launches = mi_tile_single.launches
+    got = mi_tile_single(hi, lo, xj, ipf, jpf, 0.5, BW, mults, scale)
+    want = mi_tile_single_plain(hi, lo, xj, ipf, jpf, 0.5, BW, mults, scale)
+    torch.cuda.synchronize()
+    assert mi_tile_single.launches == launches + 1
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_wog", [False, True])
+@pytest.mark.parametrize("density", [0.0, 0.01, 0.3, 1.0])
+def test_cuda_k2_matches_plain(cuda_device, density, with_wog):
+    rng = np.random.default_rng(5)
+    mask = torch.from_numpy(rng.random((64, 3000)) < density).to(cuda_device)
+    mi = torch.rand(64, 3000, device=cuda_device)
+    wog = torch.rand(64, 3000, device=cuda_device) if with_wog else None
+    launches = route_rows.launches
+    got = route_rows(mask, mi, wog)
+    want = route_rows_plain(mask, mi, wog)
+    torch.cuda.synchronize()
+    assert route_rows.launches == launches + 1
+    for a, b in zip(got, want):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+def alignment(S, L, unit=False, seed=8):
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, size=(S, L)).astype(np.uint8)
+    codes[rng.random((S, L)) < 0.05] = 4
+    return Alignment(codes, [f"s{i}" for i in range(S)], "gpu", np.arange(L), L,
+                     None if unit else rng.random(S) * 0.9 + 0.1)
+
+
+@pytest.mark.gpu
+def test_cuda_sample_match_counts_exact(cuda_device):
+    """f32 matmuls with TF32 off: integer counts as exact as on the CPU."""
+    al = alignment(300, 5000)
+    got = sample_match_counts(al, tile=2048, device=cuda_device)
+    np.testing.assert_array_equal(got, sample_match_counts(al, tile=2048, device="cpu"))
+    assert got.max() > 2**11  # past what TF32 holds exactly
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("unit", [False, True])
+def test_cuda_sweep_matches_cpu(cuda_device, unit):
+    al = alignment(96, 700, unit)
+    cpu = MIEngine(al, EngineConfig(tile=256), device="cpu")
+    gpu = MIEngine(al, EngineConfig(tile=256), device=cuda_device)
+    assert gpu.statics.int8_mode == ("unit" if unit else "fixed14")
+    thr = 0.05
+    a, b = cpu.sweep(thr), gpu.sweep(thr)
+    ea = dict(zip(zip(a.ipos.tolist(), a.jpos.tolist()), zip(a.mi.tolist(), a.mi_wog.tolist())))
+    eb = dict(zip(zip(b.ipos.tolist(), b.jpos.tolist()), zip(b.mi.tolist(), b.mi_wog.tolist())))
+    for k in set(ea) ^ set(eb):
+        assert abs(ea.get(k, eb.get(k))[0] - thr) <= TOL, k
+    for k in set(ea) & set(eb):
+        assert abs(ea[k][0] - eb[k][0]) <= TOL and abs(ea[k][1] - eb[k][1]) <= TOL, k
+    np.testing.assert_allclose(a.colmax, b.colmax, rtol=0, atol=TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["unit", "fixed14", "off"])
+def test_cuda_k1_engine_row_args(cuda_device, mode):
+    """K1 on the engine's own block-row arguments, as the sweep gives
+    them: strided column views of the one-hot, TJ = Lp - i0 and a sample
+    tail (S = 200 is no multiple of the kernel's sample chunk)."""
+    al = alignment(200, 1500, unit=mode == "unit")
+    cfg = EngineConfig(tile=256, mxu_int8="off" if mode == "off" else "auto")
+    eng = MIEngine(al, cfg, device=cuda_device)
+    assert eng.statics.int8_mode == mode
+    for i0 in (0, 768):
+        args = eng.row_args(i0)
+        got = mi_tile_single(*args)
+        want = mi_tile_single_plain(*args)
+        torch.cuda.synchronize()
+        assert got.shape == (256, eng.Lp - i0)
+        assert float((got - want).abs().max()) <= TOL

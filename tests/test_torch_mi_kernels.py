@@ -1,0 +1,124 @@
+"""Kernel K1 of the PyTorch port (spydrpick_torch/ops/mi_kernels.py) against
+the JAX package's Pallas kernel ``mi_tile_pallas_single`` (interpret mode,
+as tests/test_mi_pallas.py runs it) and the float64 oracle.
+
+On the CPU the port's wrapper runs its plain PyTorch version; the CUDA
+kernel itself is compared with that plain version on the card
+(tests/test_torch_gpu.py and chip_smoke.py)."""
+
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from spydrpick_tpu.core.alphabet import N_STATES
+from spydrpick_tpu.ops import mi_pallas
+from spydrpick_tpu.ops.reference import crosstab_pair, mi_single
+from spydrpick_torch.ops import mi_kernels
+from spydrpick_torch.ops.mi_kernels import BW, mi_tile_single
+
+from tests.conftest import random_alignment
+
+# Both packages build the same integer (or bf16-exact) crosstables; only
+# the f32 log implementation and the order of f32 sums differ.
+PARITY_TOL = 1e-5
+# tests/test_mi_pallas.py:56 bound against the float64 oracle
+ORACLE_TOL = 3e-4
+
+
+def to_torch(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype == ml_dtypes.bfloat16:
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def operands(mode: str, S: int, TI: int, TJ: int, seed: int):
+    """Slab operands of one tile (i-columns [0, TI), j-columns [0, TJ)) of
+    a random alignment, as numpy arrays, in the given operand mode."""
+    al = random_alignment(n_samples=S, n_loci=TJ, seed=seed, gap_frac=0.2)
+    if mode == "unit":
+        al.weights = np.ones(S)
+    oh = np.zeros((S, TJ, N_STATES), np.int8)
+    np.put_along_axis(oh, al.codes[:, :, None].astype(np.int64), 1, axis=2)
+    xj = np.asarray(mi_pallas.to_slab(oh.reshape(S, TJ * N_STATES), BW))
+    pf = np.asarray(mi_pallas.to_slab(
+        al.state_presence.astype(np.float32).reshape(-1), BW))
+    xi = xj[:, :TI * N_STATES]
+    w = al.weights
+    if mode == "unit":
+        return al, (np.ascontiguousarray(xi), None, xj, pf[:TI * N_STATES], pf, (1,), 1.0)
+    if mode == "fixed14":
+        q = 16383.0 / float(w.max())
+        w_q = np.clip(np.round(w.astype(np.float32) * np.float32(q)), 0, 16383).astype(np.int32)
+        hi = (xi.astype(np.int32) * (w_q // 128)[:, None]).astype(np.int8)
+        lo = (xi.astype(np.int32) * (w_q % 128)[:, None]).astype(np.int8)
+        return al, (hi, lo, xj, pf[:TI * N_STATES], pf, (128, 1), 1.0 / q)
+    xi_w = xi.astype(np.float32) * w.astype(np.float32)[:, None]
+    hi, lo = (np.asarray(x) for x in mi_pallas.split_bf16(jnp.asarray(xi_w)))
+    return al, (hi, lo, xj.astype(ml_dtypes.bfloat16), pf[:TI * N_STATES], pf, (1, 1), 1.0)
+
+
+def run_jax(ops, bs):
+    hi, lo, xj, ipf, jpf, mults, scale = ops
+    return np.asarray(mi_pallas.mi_tile_pallas_single(
+        jnp.asarray(hi), jnp.asarray(hi if lo is None else lo), jnp.asarray(xj),
+        jnp.asarray(ipf), jnp.asarray(jpf), pseudocount=0.5, interpret=True, bs=bs,
+        bi=BW, bj=BW, n_passes=len(mults), pass_mults=mults, acc_scale=scale))
+
+
+def run_port(ops):
+    hi, lo, xj, ipf, jpf, mults, scale = ops
+    return mi_tile_single(to_torch(hi), None if lo is None else to_torch(lo), to_torch(xj),
+                          to_torch(ipf), to_torch(jpf), 0.5, BW, mults, scale).numpy()
+
+
+@pytest.mark.parametrize("mode", ["unit", "fixed14", "bf16"])
+@pytest.mark.parametrize("S,TI,TJ,bs", [
+    (64, 128, 128, 64),   # one (bi, bj, S) block
+    (64, 256, 384, 32),   # 2 x 3 column blocks, 2 sample blocks
+])
+def test_plain_k1_matches_pallas(mode, S, TI, TJ, bs):
+    al, ops = operands(mode, S, TI, TJ, seed=TI + TJ)
+    launches = mi_tile_single.launches
+    got = run_port(ops)
+    want = run_jax(ops, bs)
+    assert mi_tile_single.launches == launches  # CPU tensors never launch the kernel
+    assert got.shape == want.shape == (TI, TJ)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=0, atol=PARITY_TOL)
+
+
+@pytest.mark.parametrize("mode", ["unit", "fixed14", "bf16"])
+def test_plain_k1_matches_oracle(mode):
+    al, ops = operands(mode, 96, 128, 256, seed=17)
+    got = run_port(ops)
+    rng = np.random.default_rng(0)
+    for _ in range(60):
+        i, j = int(rng.integers(0, 128)), int(rng.integers(0, 256))
+        if i == j:
+            continue
+        C = crosstab_pair(al.codes[:, i], al.codes[:, j], al.weights)
+        want = mi_single(C, al.state_presence[i], al.state_presence[j], 0.5)
+        assert abs(got[i, j] - want) < ORACLE_TOL, (i, j, got[i, j], want)
+
+
+def test_to_slab_and_split_bf16_equal_jax():
+    rng = np.random.default_rng(5)
+    x = rng.random((7, 3 * BW * N_STATES)).astype(np.float32)
+    np.testing.assert_array_equal(mi_kernels.to_slab(torch.from_numpy(x), BW).numpy(),
+                                  np.asarray(mi_pallas.to_slab(jnp.asarray(x), BW)))
+    hi, lo = mi_kernels.split_bf16(torch.from_numpy(x))
+    jhi, jlo = mi_pallas.split_bf16(jnp.asarray(x))
+    assert torch.equal(hi, to_torch(np.asarray(jhi)))
+    assert torch.equal(lo, to_torch(np.asarray(jlo)))
+
+
+def test_k1_rejects_other_devices():
+    """Off the CPU the wrapper launches the kernel or raises: a tensor on
+    another device never falls back to the plain version."""
+    x = torch.zeros((64, BW * N_STATES), dtype=torch.int8, device="meta")
+    p = torch.zeros(BW * N_STATES, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        mi_tile_single(x, None, x, p, p, 0.5, BW, (1,), 1.0)
