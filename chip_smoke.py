@@ -16,6 +16,11 @@ Phases (each raises on failure; nothing is caught):
         at the first block-row and one in the middle (a strided column
         view of the one-hot, TJ = Lp - i0, a sample tail of 3000 % 64),
         in the fixed14, unit-int8 and bf16 modes;
+     c. kernel B3 (dual MI tile) against its plain version on operands
+        made as in 2a and on the engine's own dual block-row arguments
+        (``MIEngine.row_dual_args``) as in 2b: max |dmi| and max |dwog|
+        <= 1e-5, and its mi equal to K1's on the same operands bit for
+        bit; B3, plain and K1 times;
   3. kernel K2 (row compaction) against its plain version at (512, 30720)
      and mask densities 0, 1%, 30%, 100%, with and without wog: counts and
      compacted prefixes exactly equal, with both times;
@@ -23,11 +28,25 @@ Phases (each raises on failure; nothing is caught):
      alignment on the card against the same engine on the CPU;
   5. the main path at the size users run it: ``spydrpick_torch.cli.main``
      on the weighted S=3000 x L=30720 alignment (the bench.py "medium"
-     generator) with the automatic threshold; both kernels must have been
-     launched by it.
+     generator) with the automatic threshold; K1 and K2 must have been
+     launched by it;
+  6. the library's exact-wog sweep at that size:
+     ``MIEngine(al, EngineConfig(wog_fetch="full")).sweep(thr)`` at phase
+     5's threshold launches B3 once per block-row (60) and K1 never; its
+     edges, mi and colmax equal the lazy sweep's bit for bit, the lazy
+     sweep's outlier candidates (wog from the pairs path) agree within
+     1e-5, and edges whose columns have no gaps carry wog == mi;
+  7. checkpoint and resume at that size: a checkpointed sweep of the
+     engine ``run_pipeline`` builds is killed from its progress callback
+     after block-row 24; ``cli.main`` with phase 5's flags plus
+     ``--checkpoint`` resumes it, launching K1 once per row not in the
+     snapshot, deletes the file and writes outputs byte-identical to
+     phase 5's; an uninterrupted ``--checkpoint`` run shows the cost of
+     the saves.
 The line before the last is a JSON object with each kernel's route,
-source, launches in phase 5, max error over phases 2-3 and times at the
-main path's shape; the last line is ``{"ok": true, "device": {...}}``.
+source, launches in its main-path phase (5 for K1 and K2, 6 for B3), max
+error over phases 2-3 and 6 and times at the main path's shape; the last
+line is ``{"ok": true, "device": {...}}``.
 Without a GPU it exits with an error before printing any result.
 """
 
@@ -48,6 +67,12 @@ import torch
 
 K1_TOL = 1e-5  # same integer crosstables; only f32 log/sum order may differ
 S_BENCH, L_BENCH = 3000, 30720
+TILE = 512  # the engine's default block-row width
+
+
+def main_flags(fasta, wfile):
+    """Phase 5's ``cli.main`` flags (phases 6 and 7 rebuild its engine)."""
+    return [fasta, "--sample-weights", wfile, "--seed", "1", "-v"]
 
 
 def cuda_time_ms(fn, n: int) -> float:
@@ -80,9 +105,15 @@ def phase_env():
     _, report = cuda_build.build()
     cuda_build.load()
     print(f"# kernels built in {time.perf_counter() - t0:.2f} s")
+    kernel = "?"
     for line in report.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"#   ptxas: {line.strip()}")
+        # a mangled template instance, e.g. ...mi_tile_i8_kernelILi2ELb1EE...: <2, 1>
+        m = re.search(r"entry function '\w*?(mi_tile_(?:i8|bf16)_kernel|route_rows_kernel)"
+                      r"I((?:L[ib]\d+E)+)", line)
+        if m:
+            kernel = f"{m.group(1)}<{', '.join(re.findall(r'L[ib](\d+)E', m.group(2)))}>"
+        elif "registers" in line or "spill" in line:
+            print(f"#   ptxas {kernel}: {line.split('info    :')[-1].strip()}")
     return smi
 
 
@@ -154,15 +185,75 @@ def phase_k1(dev, S=3072, TI=512, widths=(512, 30720)):
     return worst
 
 
+def wog_presence(pf):
+    """Slab presence with the gap state (4) cleared."""
+    from spydrpick_torch.ops.mi_kernels import BW
+
+    pw = pf.reshape(-1, 5, BW).clone()
+    pw[:, 4] = 0
+    return pw.reshape(-1)
+
+
+def b3_compare(label, args, n, n_plain):
+    """B3 against its plain version on the same arguments (max |dmi| and
+    max |dwog| must be <= K1_TOL), its mi against K1's on the K1 part of
+    them (must be equal); returns both errors and B3's, plain's and K1's
+    mean times."""
+    from spydrpick_torch.ops.mi_kernels import mi_tile_dual, mi_tile_dual_plain, mi_tile_single
+
+    k1_args = args[:5] + args[7:]
+    mi, wog = mi_tile_dual(*args)
+    want_mi, want_wog = mi_tile_dual_plain(*args)
+    k1 = mi_tile_single(*k1_args)
+    torch.cuda.synchronize()
+    if mi.shape != want_mi.shape or not bool(torch.isfinite(mi).all() & torch.isfinite(wog).all()):
+        raise AssertionError(f"B3 {label}: shape {tuple(mi.shape)} or non-finite output")
+    err_mi = float((mi - want_mi).abs().max())
+    err_wog = float((wog - want_wog).abs().max())
+    if err_mi > K1_TOL or err_wog > K1_TOL:
+        raise AssertionError(f"B3 {label}: max|dmi| {err_mi}, max|dwog| {err_wog} > {K1_TOL}")
+    if not torch.equal(mi, k1):
+        raise AssertionError(f"B3 {label}: mi differs from K1's by {float((mi - k1).abs().max())}")
+    del mi, wog, want_mi, want_wog, k1
+    ms = cuda_time_ms(lambda: mi_tile_dual(*args), n)
+    plain_ms = cuda_time_ms(lambda: mi_tile_dual_plain(*args), n_plain)
+    k1_ms = cuda_time_ms(lambda: mi_tile_single(*k1_args), n)
+    return err_mi, err_wog, ms, plain_ms, k1_ms
+
+
+def phase_b3(dev, S=3072, TI=512, widths=(512, 30720)):
+    from spydrpick_torch.ops.mi_kernels import BW
+
+    rng = np.random.default_rng(6)
+    worst = 0.0
+    for TJ in widths:
+        for mode in ("fixed14", "unit", "bf16"):
+            xi_hi, xi_lo, xj, ipf, jpf, mults, scale = k1_operands(S, TI, TJ, mode, rng, dev)
+            args = (xi_hi, xi_lo, xj, ipf, jpf, wog_presence(ipf), wog_presence(jpf), 0.5, BW,
+                    mults, scale)
+            n = 20 if TJ == widths[0] else 5
+            err_mi, err_wog, ms, plain_ms, k1_ms = b3_compare(
+                f"{mode} S={S} TJ={TJ}", args, n, 2 if n == 5 else n)
+            worst = max(worst, err_mi, err_wog)
+            print(f"# B3 {mode:8s} S={S} TI={TI} TJ={TJ:5d}: max|dmi|={err_mi:.3e} "
+                  f"max|dwog|={err_wog:.3e} mi == K1's; kernel {ms:.3f} ms, plain "
+                  f"{plain_ms:.3f} ms, K1 {k1_ms:.3f} ms", flush=True)
+            del args, xi_hi, xi_lo, xj
+            torch.cuda.empty_cache()
+    return worst
+
+
 def phase_k1_main(dev, fasta, wfile):
-    """K1 on the engine's own block-row arguments for the bench alignment:
-    the main path's shapes, strides and sample tail, in its three modes."""
+    """K1 and B3 on the engine's own block-row arguments for the bench
+    alignment: the main path's shapes, strides and sample tail, in its
+    three modes."""
     from spydrpick_torch.engine.solver import EngineConfig, MIEngine
     from spydrpick_torch.pipeline import PipelineOptions, load_and_preprocess
 
     al = load_and_preprocess(PipelineOptions(alignmentfile=fasta, sample_weights=wfile))
     weights = al.weights
     worst, main_ms, main_plain_ms = 0.0, None, None
+    b3_worst, b3 = 0.0, {}
     for mode, mxu_int8, unit in (("fixed14", "auto", False), ("unit", "auto", True),
                                  ("off", "off", False)):
         al.weights = np.ones_like(weights) if unit else weights
@@ -180,10 +271,18 @@ def phase_k1_main(dev, fasta, wfile):
             if mode == "fixed14" and i0 == 0:
                 main_ms, main_plain_ms = ms, plain_ms
             del args, xi, xj
+            err_mi, err_wog, ms, plain_ms, k1_ms = b3_compare(
+                f"main-path {mode} i0={i0}", eng.row_dual_args(i0), 5, 2)
+            b3_worst = max(b3_worst, err_mi, err_wog)
+            print(f"# B3 main path {mode:7s} S={eng.S} i0={i0:5d}: max|dmi|={err_mi:.3e} "
+                  f"max|dwog|={err_wog:.3e} mi == K1's; kernel {ms:.3f} ms, plain "
+                  f"{plain_ms:.3f} ms, K1 {k1_ms:.3f} ms", flush=True)
+            if mode == "fixed14" and i0 == 0:
+                b3 = {"ms": ms, "plain_ms": plain_ms}
         del eng
         torch.cuda.empty_cache()
     al.weights = weights
-    return worst, main_ms, main_plain_ms
+    return worst, main_ms, main_plain_ms, b3_worst, b3
 
 
 def phase_k2(dev, R=512, W=30720):
@@ -229,8 +328,8 @@ def phase_parity(dev, td, S=256, L=2048):
     fasta, wfile = write_inputs(td, "parity", codes, w)
     al = load_and_preprocess(PipelineOptions(alignmentfile=fasta, sample_weights=wfile,
                                              no_filter_alignment=True))
-    cpu = MIEngine(al, EngineConfig(), device="cpu")
-    gpu = MIEngine(al, EngineConfig(), device=dev)
+    cpu = MIEngine(al, EngineConfig(wog_fetch="outliers"), device="cpu")
+    gpu = MIEngine(al, EngineConfig(wog_fetch="outliers"), device=dev)
     if gpu.statics.int8_mode != "fixed14":
         raise AssertionError(f"parity alignment runs {gpu.statics.int8_mode}, not fixed14")
     rng = np.random.default_rng(4)
@@ -271,8 +370,7 @@ def phase_main(dev, td, fasta, wfile, S=S_BENCH, L=L_BENCH):
     log = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(log):
-        rc = cli.main([fasta, "--sample-weights", wfile, "--seed", "1", "-v",
-                       "--output-dir", out_dir])
+        rc = cli.main(main_flags(fasta, wfile) + ["--output-dir", out_dir])
     wall = time.perf_counter() - t0
     launches = {"mi_tile_single": mi_tile_single.launches, "route_rows": route_rows.launches}
     text = log.getvalue()
@@ -304,6 +402,158 @@ def phase_main(dev, td, fasta, wfile, S=S_BENCH, L=L_BENCH):
           f"threshold {thr:.6f}, {n_edges} edges, top couplings row {' '.join(first)}")
     print("# stage seconds: " + ", ".join(f"{k} {v}" for k, v in stages.items()))
     print(f"# peak device memory {peak / 2**30:.2f} GiB; launches {launches}", flush=True)
+    return launches, out_dir, float(stages["sweep_s"])
+
+
+def pipeline_engine(dev, fasta, wfile):
+    """The alignment, engine and save threshold that ``run_pipeline``
+    builds from phase 5's flags (the same key for a checkpoint)."""
+    from spydrpick_torch.engine.solver import MIEngine
+    from spydrpick_torch.engine.threshold import default_mi_values, determine_mi_threshold
+    from spydrpick_torch.pipeline import PipelineOptions, engine_config, load_and_preprocess
+
+    opts = PipelineOptions(alignmentfile=fasta, sample_weights=wfile, seed=1)
+    al = load_and_preprocess(opts)
+    engine = MIEngine(al, engine_config(opts), device=dev)
+    thr = determine_mi_threshold(engine, default_mi_values(al.n_loci, opts.mi_values),
+                                 threshold_pairs=opts.mi_threshold_pairs,
+                                 iterations=opts.mi_threshold_iterations, seed=opts.seed)
+    return al, engine, thr
+
+
+def timed_sweep(engine, thr):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    edges = engine.sweep(thr)
+    torch.cuda.synchronize()
+    return edges, time.perf_counter() - t0
+
+
+def phase_dual_sweep(dev, fasta, wfile, L=L_BENCH):
+    """The library's exact-wog sweep (B3) against the pipeline's lazy one."""
+    from spydrpick_torch.engine.outliers import outlier_thresholds
+    from spydrpick_torch.engine.solver import EngineConfig, MIEngine
+    from spydrpick_torch.ops.compact import route_rows
+    from spydrpick_torch.ops.mi_kernels import mi_tile_dual, mi_tile_single
+
+    al, lazy_engine, thr = pipeline_engine(dev, fasta, wfile)
+    lazy, lazy_s = timed_sweep(lazy_engine, thr)
+    del lazy_engine
+    engine = MIEngine(al, EngineConfig(wog_fetch="full"), device=dev)
+    if engine.statics.int8_mode != "fixed14" or engine.statics.wog_lazy:
+        raise AssertionError(f"dual sweep engine runs {engine.statics}")
+    mi_tile_single.launches = mi_tile_dual.launches = route_rows.launches = 0
+    full, full_s = timed_sweep(engine, thr)
+    launches = {"mi_tile_single": mi_tile_single.launches, "mi_tile_dual": mi_tile_dual.launches,
+                "route_rows": route_rows.launches}
+    n_rows = -(-L // TILE)
+    if launches["mi_tile_dual"] != n_rows or launches["mi_tile_single"] != 0:
+        raise AssertionError(f"dual sweep launches {launches}, expected {n_rows} B3 and no K1")
+    for f in ("ipos", "jpos", "mi", "colmax"):
+        if not np.array_equal(getattr(lazy, f), getattr(full, f)):
+            raise AssertionError(f"dual sweep: {f} differs from the lazy sweep's")
+    cand = full.mi >= outlier_thresholds(full.colmax)[0]
+    if not cand.any():
+        raise AssertionError("dual sweep: no outlier candidate to compare")
+    err = float(np.max(np.abs(lazy.mi_wog[cand] - full.mi_wog[cand])))
+    if err > K1_TOL:
+        raise AssertionError(f"dual sweep: candidates' max|dwog| {err} > {K1_TOL}")
+    gap = al.gap_presence
+    no_gap = ~(gap[full.ipos] | gap[full.jpos])
+    if not np.array_equal(full.mi_wog[no_gap], full.mi[no_gap]):
+        raise AssertionError("dual sweep: an edge without gaps has wog != mi")
+    print(f"# dual sweep S={al.n_samples} L={al.n_loci} fixed14 thr={thr:.6f}: {full.n_edges} "
+          f"edges, edges/mi/colmax equal to the lazy sweep's; {int(cand.sum())} outlier "
+          f"candidates, max|dwog| vs pairs path {err:.3e}; {int(no_gap.sum())} edges without "
+          f"gaps (wog == mi); max|wog - mi| {float(np.max(np.abs(full.mi_wog - full.mi))):.4f}; "
+          f"sweep lazy {lazy_s:.3f} s, dual {full_s:.3f} s; launches {launches}", flush=True)
+    return launches, err
+
+
+def cli_run(args, label):
+    """``cli.main(args)`` with its stdout captured; returns the log and
+    the K1/B3/K2 launches it made."""
+    from spydrpick_torch import cli
+    from spydrpick_torch.ops.compact import route_rows
+    from spydrpick_torch.ops.mi_kernels import mi_tile_dual, mi_tile_single
+
+    mi_tile_single.launches = mi_tile_dual.launches = route_rows.launches = 0
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        rc = cli.main(args)
+    launches = {"mi_tile_single": mi_tile_single.launches, "mi_tile_dual": mi_tile_dual.launches,
+                "route_rows": route_rows.launches}
+    text = log.getvalue()
+    if rc != 0:
+        raise AssertionError(f"{label}: cli.main returned {rc}:\n{text[-4000:]}")
+    return text, launches
+
+
+def assert_same_outputs(want_dir, got_dir, label):
+    names = sorted(os.listdir(want_dir))
+    if sorted(os.listdir(got_dir)) != names:
+        raise AssertionError(f"{label}: files {sorted(os.listdir(got_dir))} != {names}")
+    for name in names:
+        with open(os.path.join(want_dir, name), "rb") as a, open(os.path.join(got_dir, name),
+                                                                 "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"{label}: {name} differs from phase 5's")
+    return names
+
+
+def phase_checkpoint(dev, td, fasta, wfile, main_out, main_sweep_s, L=L_BENCH,
+                     kill_after=24, every=8):
+    """Kill a checkpointed sweep (saved every ``every`` rows) after block-row
+    ``kill_after``, resume it through the CLI, and time an uninterrupted
+    checkpointed CLI run."""
+    from spydrpick_torch.engine import checkpoint as ckpt_mod
+
+    class Killed(Exception):
+        pass
+
+    al, engine, thr = pipeline_engine(dev, fasta, wfile)
+    path = os.path.join(td, "sweep.ckpt")
+    seen = []
+
+    def progress(lo, hi, n, dt):
+        seen.append(lo)
+        if len(seen) == kill_after:
+            raise Killed
+
+    try:
+        engine.sweep(thr, progress=progress, checkpoint_path=path, checkpoint_every=every)
+        raise AssertionError("checkpointed sweep was not killed")
+    except Killed:
+        pass
+    saved = ckpt_mod.load(path, ckpt_mod.params_key(engine.statics, thr))
+    if saved is None:
+        raise AssertionError("no checkpoint with the pipeline's key after the kill")
+    n_done = len(saved.done_rows)
+    n_saved = sum(len(x) for x in saved.mi)
+    del engine, saved
+    torch.cuda.empty_cache()
+    n_rows = -(-L // TILE)
+    out = os.path.join(td, "resumed")
+    text, launches = cli_run(main_flags(fasta, wfile) + ["--checkpoint", path,
+                                                         "--output-dir", out], "resume")
+    if launches["mi_tile_single"] != n_rows - n_done or launches["mi_tile_dual"] != 0:
+        raise AssertionError(f"resumed run launches {launches}, expected {n_rows - n_done} K1")
+    if os.path.exists(path):
+        raise AssertionError("the checkpoint file outlived the completed run")
+    names = assert_same_outputs(main_out, out, "resumed run")
+    resumed_sweep_s = float(re.search(r"stage time: sweep_s ([\d.]+)s", text).group(1))
+    print(f"# checkpoint: killed after block-row {kill_after} with {n_done} rows / {n_saved} edges "
+          f"saved; resumed cli.main launched K1 {launches['mi_tile_single']} times, "
+          f"sweep_s {resumed_sweep_s:.2f}, removed the file, {len(names)} outputs "
+          f"byte-identical to phase 5's", flush=True)
+    out = os.path.join(td, "checkpointed")
+    text, launches = cli_run(main_flags(fasta, wfile) + ["--checkpoint", path,
+                                                         "--output-dir", out], "checkpointed")
+    assert_same_outputs(main_out, out, "checkpointed run")
+    ck_sweep_s = float(re.search(r"stage time: sweep_s ([\d.]+)s", text).group(1))
+    print(f"# checkpoint: uninterrupted --checkpoint run sweep_s {ck_sweep_s:.2f} s (saves "
+          f"every 16 rows) vs phase 5 {main_sweep_s:.2f} s, outputs byte-identical; "
+          f"launches {launches}", flush=True)
     return launches
 
 
@@ -316,14 +566,17 @@ def main() -> int:
 
     phase_env()
     k1_err = phase_k1(dev)
+    b3_err = phase_b3(dev)
     with tempfile.TemporaryDirectory() as td:
         codes, w = bench_alignment(S_BENCH, L_BENCH, seed=0)
         fasta, wfile = write_inputs(td, "bench", codes, w)
         del codes
-        k1_main_err, k1_ms, k1_plain_ms = phase_k1_main(dev, fasta, wfile)
+        k1_main_err, k1_ms, k1_plain_ms, b3_main_err, b3 = phase_k1_main(dev, fasta, wfile)
         k2_err, k2_ms, k2_plain_ms = phase_k2(dev)
         phase_parity(dev, td)
-        launches = phase_main(dev, td, fasta, wfile)
+        launches, main_out, main_sweep_s = phase_main(dev, td, fasta, wfile)
+        dual_launches, dual_err = phase_dual_sweep(dev, fasta, wfile)
+        phase_checkpoint(dev, td, fasta, wfile, main_out, main_sweep_s)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     kernels = [
@@ -335,6 +588,10 @@ def main() -> int:
          "replaces": "spydrpick_tpu/ops/compact_route.py:111",
          "launches": launches["route_rows"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms},
+        {"name": "mi_tile_dual", "route": "cuda", "source": "spydrpick_torch/csrc/mi_tile.cu",
+         "replaces": "spydrpick_tpu/ops/mi_pallas.py:523",
+         "launches": dual_launches["mi_tile_dual"],
+         "max_abs_err": max(b3_err, b3_main_err, dual_err), **b3},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -9,9 +9,12 @@ defaults and meanings, except:
   * ``--edge-capacity`` is accepted and unused: the sweep sizes each
     block-row's edge output from its counts, so no row can overflow;
   * ``--profile-dir`` writes a torch.profiler trace of the sweep;
+  * ``--checkpoint`` snapshots are the reference's format, but one written
+    by the JAX engine does not resume here (its sample axis is padded, so
+    its key differs) and the sweep starts afresh;
   * what this engine does not run yet is refused with a "not yet ported"
-    error and exit code 1 (``_not_yet_ported``): ``--checkpoint``,
-    ``--sharded``, ``--sample-shards`` > 1, the multi-host flags,
+    error and exit code 1 (``_not_yet_ported``): ``--sharded``,
+    ``--sample-shards`` > 1, the multi-host flags,
     ``--row-window`` > 1 and ``--onehot-storage codes``
     (``--onehot-storage auto`` resolves to dense).
 """
@@ -131,9 +134,9 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--matmul-precision", choices=["highest", "high", "default"],
                    default="high", help="TPU engine option, ignored here")
     g.add_argument("--output-dir", default=".", help="directory for output files")
-    g.add_argument("--checkpoint", help="sweep checkpoint file (not yet ported)")
+    g.add_argument("--checkpoint", help="sweep checkpoint file: resume a killed run")
     g.add_argument("--checkpoint-every", type=int, default=16,
-                   help="checkpoint every N block-rows (with --checkpoint)")
+                   help="checkpoint every N block-rows")
     g.add_argument("--profile-dir", help="write a torch.profiler trace of the sweep here")
     g.add_argument("--jax-cache-dir", default=None, help="TPU engine option, ignored here")
     g.add_argument("--sharded", action="store_true",
@@ -151,8 +154,6 @@ def build_parser() -> argparse.ArgumentParser:
 def _not_yet_ported(args) -> list[str]:
     """The given flags this engine cannot run yet."""
     bad = []
-    if args.checkpoint:
-        bad.append("--checkpoint")
     if args.sharded:
         bad.append("--sharded")
     if args.sample_shards > 1:
@@ -223,6 +224,8 @@ def main(argv=None) -> int:
         mxu_int8=args.mxu_int8,
         output_dir=args.output_dir,
         profile_dir=args.profile_dir,
+        checkpoint=args.checkpoint,
+        checkpoint_every=args.checkpoint_every,
     )
     try:
         run_pipeline(opts)

@@ -1,8 +1,13 @@
-// Kernel K1: with-gaps MI of every column pair of a (TI, TJ) tile.
+// Kernel K1: with-gaps MI of every column pair of a (TI, TJ) tile, and
+// kernel B3, its dual: (mi, wo-gaps mi) of every pair from one crosstable.
 //
-// Replaces spydrpick_tpu/ops/mi_pallas.py:mi_tile_pallas_single (its
+// K1 replaces spydrpick_tpu/ops/mi_pallas.py:mi_tile_pallas_single (its
 // serial schedule; the deferred schedule is a TPU MXU/VPU overlap with
-// bit-identical results).  Same operands: slab-layout one-hots (S, TI*5)
+// bit-identical results), B3 replaces mi_pallas.py:mi_tile_pallas (body
+// _kernel).  Both are one template (DUAL): B3 runs the same crosstable
+// loop and then the same epilogue a second time, on the same registers,
+// with the presence whose gap bit is cleared, so its mi equals K1's bit
+// for bit.  Same operands: slab-layout one-hots (S, TI*5)
 // and (S, TJ*5), either int8 (1 pass, or 2 fixed-point digit passes
 // recombined in int32 by pass_mults) or bf16 (1 or 2 hi/lo passes
 // accumulated in f32), slab presence vectors, and the fused entropy
@@ -17,7 +22,12 @@
 // dp4a at 2 passes), not by the tensor cores.  Blocks of 16x16 pairs
 // are ordered i-fastest so the j operand of a launch streams from
 // device memory about once while the i operand stays in L2.  The
-// tensor-core (mma/wgmma) design is later work (ROADMAP B1).
+// tensor-core (mma/wgmma) design is later work (ROADMAP B1).  B3's second
+// epilogue adds ~1k instructions per pair to K1's ~25*S*NP/4 dp4a, and
+// only the 25-float crosstable stays live across the first epilogue, so
+// nothing spills; but it raises the registers per thread (int8 2 passes:
+// 107 against K1's 79), so 2 blocks fit on an SM instead of 3, and on an
+// H100 B3 takes ~16% longer than K1 at the main path's shape.
 
 #include "common.cuh"
 
@@ -100,13 +110,37 @@ __device__ __forceinline__ void load_presence(const float* __restrict__ pf, int 
     for (int t = 0; t < SPK_NS; ++t) p[t] = pf[spk_slab_col(c, bw, t)];
 }
 
-template <int NP>
+// mi of pair (i, j) from its crosstable, and for B3 also wog from the
+// same crosstable with the wo-gaps presence ipwf/jpwf into out_wog, which
+// shares out's row stride (mi_pallas.py:138-140).  The kernels take these
+// as separate parameters: bundled into one struct parameter, they changed
+// K1's generated code, which then ran 20% slower at the main path's shape
+// on an H100.
+template <bool DUAL>
+__device__ __forceinline__ void store_pair(const float (&C)[SPK_NS][SPK_NS], int i, int j,
+    const float* __restrict__ ipf, const float* __restrict__ jpf, const float* __restrict__ ipwf,
+    const float* __restrict__ jpwf, float* __restrict__ out, float* __restrict__ out_wog,
+    long long ldo, int bw_i, int bw_j, float pc) {
+    float ip[SPK_NS], jp[SPK_NS];
+    load_presence(ipf, i, bw_i, ip);
+    load_presence(jpf, j, bw_j, jp);
+    out[(long long)i * ldo + j] = mi_epilogue(C, ip, jp, pc);
+    if constexpr (DUAL) {
+        load_presence(ipwf, i, bw_i, ip);
+        load_presence(jpwf, j, bw_j, jp);
+        out_wog[(long long)i * ldo + j] = mi_epilogue(C, ip, jp, pc);
+    }
+}
+
+template <int NP, bool DUAL>
 __global__ void __launch_bounds__(BLK * BLK)
 mi_tile_i8_kernel(const int8_t* __restrict__ xi_hi, const int8_t* __restrict__ xi_lo,
                   const int8_t* __restrict__ xj, long long ldi, long long ldj,
                   const float* __restrict__ ipf, const float* __restrict__ jpf,
-                  float* __restrict__ out, long long ldo, int S, int TI, int TJ,
-                  int bw_i, int bw_j, int nbi, int m0, int m1, float acc_scale, float pc) {
+                  const float* __restrict__ ipwf, const float* __restrict__ jpwf,
+                  float* __restrict__ out, float* __restrict__ out_wog, long long ldo, int S,
+                  int TI, int TJ, int bw_i, int bw_j, int nbi, int m0, int m1, float acc_scale,
+                  float pc) {
     // word w of column (t, c) packs samples s0+4w .. s0+4w+3, one byte each
     __shared__ int sI[NP][SPK_NS][BLK][KW_I8 + 1];
     __shared__ int sJ[SPK_NS][BLK][KW_I8 + 1];
@@ -168,7 +202,7 @@ mi_tile_i8_kernel(const int8_t* __restrict__ xi_hi, const int8_t* __restrict__ x
 
     const int i = i0 + ty, j = j0 + tx;
     if (i >= TI || j >= TJ) return;
-    float C[SPK_NS][SPK_NS], ip[SPK_NS], jp[SPK_NS];
+    float C[SPK_NS][SPK_NS];
 #pragma unroll
     for (int t = 0; t < SPK_NS; ++t)
 #pragma unroll
@@ -177,18 +211,18 @@ mi_tile_i8_kernel(const int8_t* __restrict__ xi_hi, const int8_t* __restrict__ x
             if (NP == 2) c += acc[1][t][u] * m1;
             C[t][u] = __fmul_rn(__int2float_rn(c), acc_scale);
         }
-    load_presence(ipf, i, bw_i, ip);
-    load_presence(jpf, j, bw_j, jp);
-    out[(long long)i * ldo + j] = mi_epilogue(C, ip, jp, pc);
+    store_pair<DUAL>(C, i, j, ipf, jpf, ipwf, jpwf, out, out_wog, ldo, bw_i, bw_j, pc);
 }
 
-template <int NP>
+template <int NP, bool DUAL>
 __global__ void __launch_bounds__(BLK * BLK)
 mi_tile_bf16_kernel(const __nv_bfloat16* __restrict__ xi_hi, const __nv_bfloat16* __restrict__ xi_lo,
                     const __nv_bfloat16* __restrict__ xj, long long ldi, long long ldj,
                     const float* __restrict__ ipf, const float* __restrict__ jpf,
-                    float* __restrict__ out, long long ldo, int S, int TI, int TJ,
-                    int bw_i, int bw_j, int nbi, float m0, float m1, float acc_scale, float pc) {
+                    const float* __restrict__ ipwf, const float* __restrict__ jpwf,
+                    float* __restrict__ out, float* __restrict__ out_wog, long long ldo, int S,
+                    int TI, int TJ, int bw_i, int bw_j, int nbi, float m0, float m1,
+                    float acc_scale, float pc) {
     __shared__ float sI[NP][SPK_NS][BLK][KS_BF + 1];
     __shared__ float sJ[SPK_NS][BLK][KS_BF + 1];
     const int tx = threadIdx.x, ty = threadIdx.y;
@@ -245,7 +279,7 @@ mi_tile_bf16_kernel(const __nv_bfloat16* __restrict__ xi_hi, const __nv_bfloat16
 
     const int i = i0 + ty, j = j0 + tx;
     if (i >= TI || j >= TJ) return;
-    float C[SPK_NS][SPK_NS], ip[SPK_NS], jp[SPK_NS];
+    float C[SPK_NS][SPK_NS];
 #pragma unroll
     for (int t = 0; t < SPK_NS; ++t)
 #pragma unroll
@@ -254,9 +288,45 @@ mi_tile_bf16_kernel(const __nv_bfloat16* __restrict__ xi_hi, const __nv_bfloat16
             if (NP == 2) c = __fadd_rn(c, m1 == 1.f ? acc[1][t][u] : __fmul_rn(acc[1][t][u], m1));
             C[t][u] = acc_scale == 1.f ? c : __fmul_rn(c, acc_scale);
         }
-    load_presence(ipf, i, bw_i, ip);
-    load_presence(jpf, j, bw_j, jp);
-    out[(long long)i * ldo + j] = mi_epilogue(C, ip, jp, pc);
+    store_pair<DUAL>(C, i, j, ipf, jpf, ipwf, jpwf, out, out_wog, ldo, bw_i, bw_j, pc);
+}
+
+template <bool DUAL>
+int launch(int dtype, const void* xi_hi, const void* xi_lo, const void* xj, long long ldi,
+           long long ldj, const void* ipf_, const void* jpf_, const void* ipwf_,
+           const void* jpwf_, void* out_, void* out_wog_, long long ldo, int S, int TI, int TJ,
+           int bw_i, int bw_j, int n_passes, double m0, double m1, float acc_scale, float pc,
+           void* stream) {
+    const int nbi = (TI + BLK - 1) / BLK, nbj = (TJ + BLK - 1) / BLK;
+    const dim3 block(BLK, BLK);
+    const dim3 grid((unsigned)((long long)nbi * nbj));
+    cudaStream_t st = (cudaStream_t)stream;
+    const float *ipf = (const float*)ipf_, *jpf = (const float*)jpf_;
+    const float *ipwf = (const float*)ipwf_, *jpwf = (const float*)jpwf_;
+    float *out = (float*)out_, *out_wog = (float*)out_wog_;
+    if (dtype == 0) {
+        const int8_t *a = (const int8_t*)xi_hi, *b = (const int8_t*)xi_lo, *x = (const int8_t*)xj;
+        if (n_passes == 2)
+            mi_tile_i8_kernel<2, DUAL><<<grid, block, 0, st>>>(
+                a, b, x, ldi, ldj, ipf, jpf, ipwf, jpwf, out, out_wog, ldo, S, TI, TJ, bw_i, bw_j,
+                nbi, (int)m0, (int)m1, acc_scale, pc);
+        else
+            mi_tile_i8_kernel<1, DUAL><<<grid, block, 0, st>>>(
+                a, a, x, ldi, ldj, ipf, jpf, ipwf, jpwf, out, out_wog, ldo, S, TI, TJ, bw_i, bw_j,
+                nbi, (int)m0, 0, acc_scale, pc);
+    } else {
+        const __nv_bfloat16 *a = (const __nv_bfloat16*)xi_hi, *b = (const __nv_bfloat16*)xi_lo,
+                            *x = (const __nv_bfloat16*)xj;
+        if (n_passes == 2)
+            mi_tile_bf16_kernel<2, DUAL><<<grid, block, 0, st>>>(
+                a, b, x, ldi, ldj, ipf, jpf, ipwf, jpwf, out, out_wog, ldo, S, TI, TJ, bw_i, bw_j,
+                nbi, (float)m0, (float)m1, acc_scale, pc);
+        else
+            mi_tile_bf16_kernel<1, DUAL><<<grid, block, 0, st>>>(
+                a, a, x, ldi, ldj, ipf, jpf, ipwf, jpwf, out, out_wog, ldo, S, TI, TJ, bw_i, bw_j,
+                nbi, (float)m0, 0.f, acc_scale, pc);
+    }
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -269,32 +339,19 @@ extern "C" int spk_mi_tile_single(int dtype, const void* xi_hi, const void* xi_l
                                   void* out, long long ldo, int S, int TI, int TJ, int bw_i,
                                   int bw_j, int n_passes, double m0, double m1, float acc_scale,
                                   float pc, void* stream) {
-    const int nbi = (TI + BLK - 1) / BLK, nbj = (TJ + BLK - 1) / BLK;
-    const dim3 block(BLK, BLK);
-    const dim3 grid((unsigned)((long long)nbi * nbj));
-    cudaStream_t st = (cudaStream_t)stream;
-    const float* ip = (const float*)ipf;
-    const float* jp = (const float*)jpf;
-    float* o = (float*)out;
-    if (dtype == 0) {
-        const int8_t *a = (const int8_t*)xi_hi, *b = (const int8_t*)xi_lo, *x = (const int8_t*)xj;
-        if (n_passes == 2)
-            mi_tile_i8_kernel<2><<<grid, block, 0, st>>>(a, b, x, ldi, ldj, ip, jp, o, ldo, S, TI, TJ,
-                                                         bw_i, bw_j, nbi, (int)m0, (int)m1, acc_scale, pc);
-        else
-            mi_tile_i8_kernel<1><<<grid, block, 0, st>>>(a, a, x, ldi, ldj, ip, jp, o, ldo, S, TI, TJ,
-                                                         bw_i, bw_j, nbi, (int)m0, 0, acc_scale, pc);
-    } else {
-        const __nv_bfloat16 *a = (const __nv_bfloat16*)xi_hi, *b = (const __nv_bfloat16*)xi_lo,
-                            *x = (const __nv_bfloat16*)xj;
-        if (n_passes == 2)
-            mi_tile_bf16_kernel<2><<<grid, block, 0, st>>>(a, b, x, ldi, ldj, ip, jp, o, ldo, S, TI, TJ,
-                                                           bw_i, bw_j, nbi, (float)m0, (float)m1,
-                                                           acc_scale, pc);
-        else
-            mi_tile_bf16_kernel<1><<<grid, block, 0, st>>>(a, a, x, ldi, ldj, ip, jp, o, ldo, S, TI, TJ,
-                                                           bw_i, bw_j, nbi, (float)m0, 0.f, acc_scale,
-                                                           pc);
-    }
-    return (int)cudaGetLastError();
+    return launch<false>(dtype, xi_hi, xi_lo, xj, ldi, ldj, ipf, jpf, nullptr, nullptr, out,
+                         nullptr, ldo, S, TI, TJ, bw_i, bw_j, n_passes, m0, m1, acc_scale, pc,
+                         stream);
+}
+
+// B3: as spk_mi_tile_single, plus the wo-gaps presence ipwf/jpwf and the
+// wog output, which shares out's row stride.
+extern "C" int spk_mi_tile_dual(int dtype, const void* xi_hi, const void* xi_lo, const void* xj,
+                                long long ldi, long long ldj, const void* ipf, const void* jpf,
+                                const void* ipwf, const void* jpwf, void* out, void* out_wog,
+                                long long ldo, int S, int TI, int TJ, int bw_i, int bw_j,
+                                int n_passes, double m0, double m1, float acc_scale, float pc,
+                                void* stream) {
+    return launch<true>(dtype, xi_hi, xi_lo, xj, ldi, ldj, ipf, jpf, ipwf, jpwf, out, out_wog,
+                        ldo, S, TI, TJ, bw_i, bw_j, n_passes, m0, m1, acc_scale, pc, stream);
 }

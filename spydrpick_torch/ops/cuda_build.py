@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (``spydrpick_torch/csrc``).
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface (no PyTorch headers, so the
-build takes seconds), at the first kernel launch of a process, into
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a``,
+all started together, and the objects are linked into one shared library
+with a plain C interface (no PyTorch headers, so the build takes
+seconds), at the first kernel launch of a process, into
 ``build/kernels/`` of the checkout.  ``ctypes`` loads it; the wrappers in
 ``ops/mi_kernels.py`` and ``ops/compact.py`` pass device pointers and
 PyTorch's current CUDA stream.  A failed build raises with the
@@ -20,8 +21,8 @@ import subprocess
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 LIB_NAME = "libspydrpick_torch_kernels.so"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib = None
 
@@ -32,6 +33,10 @@ _SIGNATURES = {
     # bw_i, bw_j, n_passes, m0, m1, acc_scale, pc, stream
     "spk_mi_tile_single": [_i, _vp, _vp, _vp, _ll, _ll, _vp, _vp, _vp, _ll,
                            _i, _i, _i, _i, _i, _i, _d, _d, _f, _f, _vp],
+    # dtype, xi_hi, xi_lo, xj, ldi, ldj, ipf, jpf, ipwf, jpwf, out, out_wog,
+    # ldo, S, TI, TJ, bw_i, bw_j, n_passes, m0, m1, acc_scale, pc, stream
+    "spk_mi_tile_dual": [_i, _vp, _vp, _vp, _ll, _ll, _vp, _vp, _vp, _vp, _vp, _vp,
+                         _ll, _i, _i, _i, _i, _i, _i, _d, _d, _f, _f, _vp],
     # mask, mi, wog, omi, oj, owog, counts, R, W, stream
     "spk_route_rows": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _vp],
 }
@@ -60,15 +65,33 @@ def build() -> tuple[pathlib.Path, str]:
         raise RuntimeError(f"nvcc not found (looked on PATH and at {nvcc}); the CUDA "
                            "kernels are compiled from spydrpick_torch/csrc at first use")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (rc={res.returncode}): {' '.join(cmd)}\n"
-            f"{res.stdout}{res.stderr}")
-    os.replace(tmp, lib)  # atomic: concurrent builders never load a partial file
-    return lib, res.stdout + res.stderr
+    tag = f"{os.getpid()}.tmp"
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in srcs]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in zip(srcs, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    report = ""
+    try:
+        for cmd, proc in zip(cmds, procs):
+            out = proc.communicate()[0]
+            report += out
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed (rc={proc.returncode}): {' '.join(cmd)}\n{out}")
+        tmp = BUILD_DIR / f"{LIB_NAME}.{tag}"
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed (rc={res.returncode}): {' '.join(cmd)}\n"
+                               f"{res.stdout}{res.stderr}")
+        os.replace(tmp, lib)  # atomic: a concurrent build never loads a partial file
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return lib, report
 
 
 def load() -> ctypes.CDLL:

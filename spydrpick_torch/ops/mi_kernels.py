@@ -1,15 +1,19 @@
-"""Kernel K1: the all-pairs MI tile (port of
-spydrpick_tpu/ops/mi_pallas.py:mi_tile_pallas_single).
+"""Kernels K1 and B3: the all-pairs MI tile (ports of
+spydrpick_tpu/ops/mi_pallas.py:mi_tile_pallas_single and its dual,
+mi_tile_pallas).
 
-``mi_tile_single`` computes the (TI, TJ) f32 with-gaps MI of every
+``mi_tile_single`` (K1) computes the (TI, TJ) f32 with-gaps MI of every
 column pair from slab-layout one-hot operands: the weighted crosstable
 C = sum_passes mult * (Xi^T Xj) over samples, then f32(C) * acc_scale,
 then the fused pseudocount + entropy epilogue of ``_mi_from_block``.
-On CUDA tensors it launches the hand-written kernel in
-``csrc/mi_tile.cu`` (design notes there); on CPU tensors it runs
-``mi_tile_single_plain``, the same function in plain PyTorch.  One
-launch may cover a whole block-row (TJ = every column from the diagonal
-tile on): it is the same function on a wider tile.
+``mi_tile_dual`` (B3) runs the same epilogue twice on one crosstable:
+with the presence vectors (mi, bit-equal to K1's) and with the wo-gaps
+presence vectors (wog).  On CUDA tensors each launches the hand-written
+kernel in ``csrc/mi_tile.cu`` (design notes there); on CPU tensors they
+run ``mi_tile_single_plain`` / ``mi_tile_dual_plain``, the same functions
+in plain PyTorch.  One launch may cover a whole block-row (TJ = every
+column from the diagonal tile on): it is the same function on a wider
+tile.
 
 Operand modes (the engine's int8-mode rule picks one,
 engine/solver.py:build_device_data):
@@ -96,14 +100,13 @@ def _passes(xi_hi, xi_lo, pass_mults):
     return xs, tuple(pass_mults[: len(xs)])
 
 
-def mi_tile_single_plain(xi_hi, xi_lo, xj, ipf, jpf, pseudocount: float = 0.5,
-                         bw: int = BW, pass_mults: tuple = (1, 1),
-                         acc_scale: float = 1.0) -> torch.Tensor:
-    """Plain-PyTorch twin of the kernel (the CPU path, and the card-side
-    reference).  int8 operands: the exact integer product, taken in
-    float64 (exact: counts < 2^53; integer matmul does not exist on
-    CUDA) and cast to int32, then round-to-nearest to f32.  bf16
-    operands: f32 products of the exact f32 upcasts."""
+def crosstab_plain(xi_hi, xi_lo, xj, pass_mults: tuple = (1, 1),
+                   acc_scale: float = 1.0) -> torch.Tensor:
+    """(TI*5, TJ*5) f32 slab crosstable of the kernels' operands.  int8
+    operands: the exact integer product, taken in float64 (exact: counts
+    < 2^53; integer matmul does not exist on CUDA) and cast to int32,
+    then round-to-nearest to f32.  bf16 operands: f32 products of the
+    exact f32 upcasts."""
     xs, mults = _passes(xi_hi, xi_lo, pass_mults)
     f32 = torch.float32
     if xi_hi.dtype == torch.int8:
@@ -125,7 +128,56 @@ def mi_tile_single_plain(xi_hi, xi_lo, xj, ipf, jpf, pseudocount: float = 0.5,
             C = d if C is None else C + d
     if acc_scale != 1.0:
         C = C * torch.tensor(acc_scale, dtype=f32, device=C.device)
-    return mi_from_block_plain(C, ipf.to(f32), jpf.to(f32), pseudocount, bw)
+    return C
+
+
+def mi_tile_single_plain(xi_hi, xi_lo, xj, ipf, jpf, pseudocount: float = 0.5,
+                         bw: int = BW, pass_mults: tuple = (1, 1),
+                         acc_scale: float = 1.0) -> torch.Tensor:
+    """Plain-PyTorch twin of K1 (the CPU path, and the card-side
+    reference)."""
+    C = crosstab_plain(xi_hi, xi_lo, xj, pass_mults, acc_scale)
+    return mi_from_block_plain(C, ipf.to(torch.float32), jpf.to(torch.float32), pseudocount, bw)
+
+
+def mi_tile_dual_plain(xi_hi, xi_lo, xj, ipf, jpf, ipwf, jpwf, pseudocount: float = 0.5,
+                       bw: int = BW, pass_mults: tuple = (1, 1),
+                       acc_scale: float = 1.0) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain-PyTorch twin of B3: (mi, wog) from one crosstable; mi is
+    ``mi_tile_single_plain``'s value bit for bit."""
+    C = crosstab_plain(xi_hi, xi_lo, xj, pass_mults, acc_scale)
+    f32 = torch.float32
+    return (mi_from_block_plain(C, ipf.to(f32), jpf.to(f32), pseudocount, bw),
+            mi_from_block_plain(C, ipwf.to(f32), jpwf.to(f32), pseudocount, bw))
+
+
+def _check_operands(name, xi_hi, xi_lo, xj, presence, bw, pass_mults):
+    """Validate the kernels' operands; returns (passes, mults, S, TI, TJ).
+    ``presence``: the (i, j) presence vector pairs the kernel reads."""
+    xs, mults = _passes(xi_hi, xi_lo, pass_mults)
+    S, TI5 = xi_hi.shape
+    TJ5 = xj.shape[1]
+    TI, TJ = TI5 // N_STATES, TJ5 // N_STATES
+    if xi_hi.dtype not in (torch.int8, torch.bfloat16):
+        raise ValueError(f"{name}: operand dtype {xi_hi.dtype}")
+    for x in xs + (xj,):
+        if x.dtype != xi_hi.dtype or x.device != xj.device or x.dim() != 2:
+            raise ValueError(f"{name}: operands differ in dtype, device or rank")
+        if x.shape[0] != S or x.stride(1) != 1:
+            raise ValueError(f"{name}: operands need S rows and unit column stride")
+    if xi_lo is not None and (xi_lo.shape != xi_hi.shape
+                              or xi_lo.stride(0) != xi_hi.stride(0)):
+        raise ValueError(f"{name}: xi_hi and xi_lo need one shape and row stride")
+    if TI5 != TI * N_STATES or TJ5 != TJ * N_STATES or TI % bw or TJ % bw:
+        raise ValueError(f"{name}: tile ({TI}, {TJ}) not in {bw}-column slab blocks")
+    for ip, jp in presence:
+        for p, n in ((ip, TI5), (jp, TJ5)):
+            if (p.dtype != torch.float32 or p.device != xj.device or p.shape != (n,)
+                    or not p.is_contiguous()):
+                raise ValueError(f"{name}: presence must be contiguous f32 (T*5,)")
+    if xi_hi.dtype == torch.int8 and any(m != int(m) for m in mults):
+        raise ValueError(f"{name}: int8 passes need integer multipliers {mults}")
+    return xs, mults, S, TI, TJ
 
 
 def mi_tile_single(xi_hi, xi_lo, xj, ipf, jpf, pseudocount: float = 0.5,
@@ -141,28 +193,8 @@ def mi_tile_single(xi_hi, xi_lo, xj, ipf, jpf, pseudocount: float = 0.5,
                                     bw, pass_mults, acc_scale)
     if not xj.is_cuda:
         raise ValueError(f"mi_tile_single: unsupported device {xj.device}")
-    xs, mults = _passes(xi_hi, xi_lo, pass_mults)
-    S, TI5 = xi_hi.shape
-    TJ5 = xj.shape[1]
-    TI, TJ = TI5 // N_STATES, TJ5 // N_STATES
-    if xi_hi.dtype not in (torch.int8, torch.bfloat16):
-        raise ValueError(f"mi_tile_single: operand dtype {xi_hi.dtype}")
-    for x in xs + (xj,):
-        if x.dtype != xi_hi.dtype or x.device != xj.device or x.dim() != 2:
-            raise ValueError("mi_tile_single: operands differ in dtype, device or rank")
-        if x.shape[0] != S or x.stride(1) != 1:
-            raise ValueError("mi_tile_single: operands need S rows and unit column stride")
-    if xi_lo is not None and (xi_lo.shape != xi_hi.shape
-                              or xi_lo.stride(0) != xi_hi.stride(0)):
-        raise ValueError("mi_tile_single: xi_hi and xi_lo need one shape and row stride")
-    if TI5 != TI * N_STATES or TJ5 != TJ * N_STATES or TI % bw or TJ % bw:
-        raise ValueError(f"mi_tile_single: tile ({TI}, {TJ}) not in {bw}-column slab blocks")
-    for p, n in ((ipf, TI5), (jpf, TJ5)):
-        if (p.dtype != torch.float32 or p.device != xj.device or p.shape != (n,)
-                or not p.is_contiguous()):
-            raise ValueError("mi_tile_single: presence must be contiguous f32 (T*5,)")
-    if xi_hi.dtype == torch.int8 and any(m != int(m) for m in mults):
-        raise ValueError(f"mi_tile_single: int8 passes need integer multipliers {mults}")
+    xs, mults, S, TI, TJ = _check_operands("mi_tile_single", xi_hi, xi_lo, xj,
+                                           ((ipf, jpf),), bw, pass_mults)
     out = torch.empty((TI, TJ), dtype=torch.float32, device=xj.device)
     if out.numel() == 0:
         return out
@@ -181,3 +213,40 @@ def mi_tile_single(xi_hi, xi_lo, xj, ipf, jpf, pseudocount: float = 0.5,
 
 
 mi_tile_single.launches = 0  # kernel launches (CPU calls do not count)
+
+
+def mi_tile_dual(xi_hi, xi_lo, xj, ipf, jpf, ipwf, jpwf, pseudocount: float = 0.5,
+                 bw: int = BW, pass_mults: tuple = (1, 1),
+                 acc_scale: float = 1.0) -> tuple[torch.Tensor, torch.Tensor]:
+    """(mi, wog), each (TI, TJ) f32, of a tile: ``mi_tile_single``'s
+    operands plus ipwf/jpwf, the slab presence with the gap bit cleared.
+    mi equals ``mi_tile_single``'s bit for bit.  Unit weights may run one
+    int8 pass (``xi_lo=None``): the reference's dual path gives them a
+    bf16 hi/lo split with lo = 0, which yields the same exact counts."""
+    if xj.device.type == "cpu":
+        return mi_tile_dual_plain(xi_hi, xi_lo, xj, ipf, jpf, ipwf, jpwf, pseudocount,
+                                  bw, pass_mults, acc_scale)
+    if not xj.is_cuda:
+        raise ValueError(f"mi_tile_dual: unsupported device {xj.device}")
+    xs, mults, S, TI, TJ = _check_operands("mi_tile_dual", xi_hi, xi_lo, xj,
+                                           ((ipf, jpf), (ipwf, jpwf)), bw, pass_mults)
+    out = torch.empty((TI, TJ), dtype=torch.float32, device=xj.device)
+    out_wog = torch.empty_like(out)
+    if out.numel() == 0:
+        return out, out_wog
+    lib = cuda_build.load()
+    stream = torch.cuda.current_stream(xj.device).cuda_stream
+    rc = lib.spk_mi_tile_dual(
+        0 if xi_hi.dtype == torch.int8 else 1,
+        xi_hi.data_ptr(), xs[-1].data_ptr(), xj.data_ptr(),
+        xi_hi.stride(0), xj.stride(0), ipf.data_ptr(), jpf.data_ptr(),
+        ipwf.data_ptr(), jpwf.data_ptr(), out.data_ptr(), out_wog.data_ptr(),
+        out.stride(0), S, TI, TJ, bw, bw, len(xs),
+        float(mults[0]), float(mults[-1]), float(acc_scale), float(pseudocount),
+        stream)
+    cuda_build.check(rc, "mi_tile_dual")
+    mi_tile_dual.launches += 1
+    return out, out_wog
+
+
+mi_tile_dual.launches = 0  # kernel launches (CPU calls do not count)

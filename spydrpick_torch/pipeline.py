@@ -80,6 +80,8 @@ class PipelineOptions:
     mxu_int8: str = "auto"
     output_dir: str = "."
     profile_dir: str | None = None      # torch.profiler trace of the sweep
+    checkpoint: str | None = None       # sweep checkpoint file (resume support)
+    checkpoint_every: int = 16
 
 
 @dataclasses.dataclass
@@ -173,6 +175,21 @@ def load_and_preprocess(opts: PipelineOptions) -> Alignment:
     return alignment
 
 
+def engine_config(opts: PipelineOptions) -> EngineConfig:
+    """The sweep engine's configuration for these options.  The pipeline
+    resolves wo-gaps MI lazily, for outlier candidates only (the only
+    edges whose wog the outputs read), checkpointed runs included, as the
+    reference's pipeline does (pipeline.py:236-243)."""
+    return EngineConfig(
+        tile=opts.tile,
+        mxu_int8=opts.mxu_int8,
+        pseudocount=opts.mi_pseudocount,
+        ld_threshold=opts.ld_threshold,
+        linear_genome=opts.linear_genome,
+        wog_fetch="outliers",
+    )
+
+
 def run_pipeline(opts: PipelineOptions, write_outputs: bool = True,
                  timings: dict | None = None) -> PipelineResult:
     """``timings`` (optional dict) receives per-stage wall seconds:
@@ -196,14 +213,7 @@ def run_pipeline(opts: PipelineOptions, write_outputs: bool = True,
     alignment = load_and_preprocess(opts)
     t_st = _stage("preprocess_s", t_st)
 
-    config = EngineConfig(
-        tile=opts.tile,
-        mxu_int8=opts.mxu_int8,
-        pseudocount=opts.mi_pseudocount,
-        ld_threshold=opts.ld_threshold,
-        linear_genome=opts.linear_genome,
-    )
-    engine = MIEngine(alignment, config, device=device)
+    engine = MIEngine(alignment, engine_config(opts), device=device)
     _log(opts, f"engine on {device}: int8 mode {engine.statics.int8_mode}, "
          f"{engine.S} sample rows x {engine.Lp} columns")
     t_st = _stage("engine_build_s", t_st)
@@ -232,7 +242,8 @@ def run_pipeline(opts: PipelineOptions, write_outputs: bool = True,
     sweep_phases: dict = {}
     with profile_trace(opts.profile_dir):
         edges = engine.sweep(mi_threshold, progress=progress if opts.verbose else None,
-                             timings=sweep_phases)
+                             checkpoint_path=opts.checkpoint,
+                             checkpoint_every=opts.checkpoint_every, timings=sweep_phases)
     tm["sweep_phases"] = sweep_phases
     t_st = _stage("sweep_s", t_st)
     _log(opts, f"{edges.n_edges} edges stored")

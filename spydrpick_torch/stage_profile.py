@@ -123,9 +123,10 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("stage_profile: no CUDA device visible to PyTorch", file=sys.stderr)
         return 2
-    from spydrpick_torch.engine.solver import EngineConfig, MIEngine
+    from spydrpick_torch.engine.solver import MIEngine
     from spydrpick_torch.engine.threshold import default_mi_values, determine_mi_threshold
-    from spydrpick_torch.pipeline import PipelineOptions, load_and_preprocess, run_pipeline
+    from spydrpick_torch.pipeline import (PipelineOptions, engine_config, load_and_preprocess,
+                                          run_pipeline)
 
     if args.trace_dir:
         os.makedirs(args.trace_dir, exist_ok=True)
@@ -143,7 +144,7 @@ def main(argv=None) -> int:
                               "sweep_phases": tm.get("sweep_phases")}), flush=True)
 
         al = load_and_preprocess(opts)
-        engine = MIEngine(al, EngineConfig())
+        engine = MIEngine(al, engine_config(opts))
         top_pairs = default_mi_values(al.n_loci, 0)
         thr = determine_mi_threshold(engine, top_pairs, seed=1)
         t0 = time.perf_counter()

@@ -158,7 +158,6 @@ def test_ignored_tpu_flags_change_nothing(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--checkpoint", "sweep.ckpt"],
     ["--sharded"],
     ["--sample-shards", "2"],
     ["--coordinator-address", "localhost:1234"],

@@ -51,7 +51,8 @@ def alignment_for(mode, n_loci=300, seed=5):
 
 def engines(mode, **kw):
     al, mxu_int8, extra = alignment_for(mode, **kw)
-    port = MIEngine(al, EngineConfig(tile=128, mxu_int8=mxu_int8, **extra), device="cpu")
+    port = MIEngine(al, EngineConfig(tile=128, mxu_int8=mxu_int8, wog_fetch="outliers", **extra),
+                    device="cpu")
     ref = JaxEngine(al, JaxConfig(tile=128, use_pallas="on", wog_fetch="outliers",
                                   mxu_int8=mxu_int8, **extra))
     return al, port, ref
@@ -138,8 +139,8 @@ def test_sweep_on_jax_device_data():
 
 def test_sweep_multiple_row_tiles_and_tile_invariance():
     al, mxu, _ = alignment_for("fixed14", n_loci=500, seed=8)
-    a = MIEngine(al, EngineConfig(tile=128), device="cpu")
-    b = MIEngine(al, EngineConfig(tile=256), device="cpu")
+    a = MIEngine(al, EngineConfig(tile=128, wog_fetch="outliers"), device="cpu")
+    b = MIEngine(al, EngineConfig(tile=256, wog_fetch="outliers"), device="cpu")
     thr = save_threshold(a)
     ea, eb = a.sweep(thr).sort_desc(), b.sweep(thr).sort_desc()
     np.testing.assert_array_equal(ea.ipos, eb.ipos)

@@ -14,7 +14,15 @@ from spydrpick_tpu.core.alignment import Alignment
 from spydrpick_torch.core.weights import sample_match_counts
 from spydrpick_torch.engine.solver import EngineConfig, MIEngine
 from spydrpick_torch.ops.compact import route_rows, route_rows_plain
-from spydrpick_torch.ops.mi_kernels import BW, mi_tile_single, mi_tile_single_plain, split_bf16, to_slab
+from spydrpick_torch.ops.mi_kernels import (
+    BW,
+    mi_tile_dual,
+    mi_tile_dual_plain,
+    mi_tile_single,
+    mi_tile_single_plain,
+    split_bf16,
+    to_slab,
+)
 
 # the kernel and its plain version build the same integer (or bf16-exact)
 # crosstables; only f32 log and sum order may differ
@@ -101,8 +109,9 @@ def test_cuda_sample_match_counts_exact(cuda_device):
 @pytest.mark.parametrize("unit", [False, True])
 def test_cuda_sweep_matches_cpu(cuda_device, unit):
     al = alignment(96, 700, unit)
-    cpu = MIEngine(al, EngineConfig(tile=256), device="cpu")
-    gpu = MIEngine(al, EngineConfig(tile=256), device=cuda_device)
+    cfg = EngineConfig(tile=256, wog_fetch="outliers")
+    cpu = MIEngine(al, cfg, device="cpu")
+    gpu = MIEngine(al, cfg, device=cuda_device)
     assert gpu.statics.int8_mode == ("unit" if unit else "fixed14")
     thr = 0.05
     a, b = cpu.sweep(thr), gpu.sweep(thr)
@@ -132,3 +141,73 @@ def test_cuda_k1_engine_row_args(cuda_device, mode):
         torch.cuda.synchronize()
         assert got.shape == (256, eng.Lp - i0)
         assert float((got - want).abs().max()) <= TOL
+
+
+def wog_presence(pf):
+    """Slab presence with the gap state (4) cleared."""
+    pw = pf.reshape(-1, 5, BW).clone()
+    pw[:, 4] = 0
+    return pw.reshape(-1)
+
+
+def assert_b3_matches(args, single_args):
+    """B3 against its plain version (mi and wog within TOL) and its mi
+    against K1's on the same operands, bit for bit."""
+    launches = mi_tile_dual.launches
+    mi, wog = mi_tile_dual(*args)
+    want_mi, want_wog = mi_tile_dual_plain(*args)
+    k1 = mi_tile_single(*single_args)
+    torch.cuda.synchronize()
+    assert mi_tile_dual.launches == launches + 1
+    assert bool(torch.isfinite(mi).all()) and bool(torch.isfinite(wog).all())
+    assert float((mi - want_mi).abs().max()) <= TOL
+    assert float((wog - want_wog).abs().max()) <= TOL
+    assert torch.equal(mi, k1)
+    assert not torch.equal(mi, wog)  # the operands have gaps
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["unit", "fixed14", "bf16"])
+def test_cuda_b3_matches_plain_and_k1(cuda_device, mode):
+    hi, lo, xj, ipf, jpf, mults, scale = k1_operands(mode, 200, 256, 640, cuda_device)
+    assert_b3_matches((hi, lo, xj, ipf, jpf, wog_presence(ipf), wog_presence(jpf), 0.5, BW,
+                       mults, scale),
+                      (hi, lo, xj, ipf, jpf, 0.5, BW, mults, scale))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["unit", "fixed14", "off"])
+def test_cuda_b3_engine_row_args(cuda_device, mode):
+    """B3 on the engine's own dual block-row arguments: strided column
+    views, TJ = Lp - i0 and a sample tail (S = 200)."""
+    al = alignment(200, 1500, unit=mode == "unit")
+    cfg = EngineConfig(tile=256, mxu_int8="off" if mode == "off" else "auto")
+    eng = MIEngine(al, cfg, device=cuda_device)
+    assert eng.statics.int8_mode == mode
+    for i0 in (0, 768):
+        args = eng.row_dual_args(i0)
+        assert args[2].stride(0) == eng.Lp * 5 and args[2].shape[1] == (eng.Lp - i0) * 5
+        assert_b3_matches(args, eng.row_args(i0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("unit", [False, True])
+def test_cuda_full_wog_sweep_matches_cpu(cuda_device, unit):
+    """wog_fetch="full": one B3 launch per block-row and no K1 launch;
+    edges, mi and exact wog as on the CPU."""
+    al = alignment(96, 700, unit)
+    cfg = EngineConfig(tile=256, wog_fetch="full")
+    cpu = MIEngine(al, cfg, device="cpu")
+    gpu = MIEngine(al, cfg, device=cuda_device)
+    thr = 0.05
+    k1, b3 = mi_tile_single.launches, mi_tile_dual.launches
+    a, b = cpu.sweep(thr), gpu.sweep(thr)
+    assert mi_tile_single.launches == k1 and mi_tile_dual.launches == b3 + 3
+    ea = dict(zip(zip(a.ipos.tolist(), a.jpos.tolist()), zip(a.mi.tolist(), a.mi_wog.tolist())))
+    eb = dict(zip(zip(b.ipos.tolist(), b.jpos.tolist()), zip(b.mi.tolist(), b.mi_wog.tolist())))
+    for k in set(ea) ^ set(eb):
+        assert abs(ea.get(k, eb.get(k))[0] - thr) <= TOL, k
+    assert len(set(ea) & set(eb)) > 1000
+    for k in set(ea) & set(eb):
+        assert abs(ea[k][0] - eb[k][0]) <= TOL and abs(ea[k][1] - eb[k][1]) <= TOL, k
+    np.testing.assert_allclose(a.colmax, b.colmax, rtol=0, atol=TOL)
