@@ -21,6 +21,12 @@ Phases (each raises on failure; nothing is caught):
         (``MIEngine.row_dual_args``) as in 2b: max |dmi| and max |dwog|
         <= 1e-5, and its mi equal to K1's on the same operands bit for
         bit; B3, plain and K1 times;
+     d. kernels B4 (crosstable tile) and B5 (entropy epilogue) on the same
+        operands as 2a and 2b: B4's int32 crosstable equal to its plain
+        version (bf16: within 1e-5 of the largest cell), B5's mi and wog
+        within 1e-5 of its plain version on B4's crosstable, and B4 ->
+        ``xtab_to_f32`` -> B5 equal to K1's mi and B3's (mi, wog) bit for
+        bit in the int8 modes; B4, B5 and plain times beside K1's;
   3. kernel K2 (row compaction) against its plain version at (512, 30720)
      and mask densities 0, 1%, 30%, 100%, with and without wog: counts and
      compacted prefixes exactly equal, with both times;
@@ -42,11 +48,28 @@ Phases (each raises on failure; nothing is caught):
      ``--checkpoint`` resumes it, launching K1 once per row not in the
      snapshot, deletes the file and writes outputs byte-identical to
      phase 5's; an uninterrupted ``--checkpoint`` run shows the cost of
-     the saves.
+     the saves;
+  8. the row-sharded CLI: two processes on the one card, joined by the
+     multi-host flags (gloo, since they share it), run phase 5's flags
+     with ``--sharded``; rank 0's outputs are byte-identical to phase 5's
+     and the ranks' K1 launches sum to one per block-row (60), with no B4
+     or B5;
+  9. the sample-sharded CLI: ``--sharded --sample-shards 2``, two ranks of
+     1500 samples each, on the weighted S=3000 x L=16384 bench alignment
+     (a cut: every block-row's crosstable crosses the host through gloo),
+     once with ``--mi-threshold`` set to the single-process tournament's
+     threshold and once with the sharded tournament; both byte-identical
+     to the single-process run, and each rank launches B4 and B5 once per
+     8192-column chunk of each block-row (48 for 32 block-rows), K2 once
+     per block-row, and K1 and B3 never.
+Ranks of phases 8 and 9 are this script run as ``chip_smoke.py --rank
+ARGS``: ``cli.main(ARGS)``, then the launch counts as a JSON line; each
+has a time limit, and a rank that fails fails the phase.
 The line before the last is a JSON object with each kernel's route,
-source, launches in its main-path phase (5 for K1 and K2, 6 for B3), max
-error over phases 2-3 and 6 and times at the main path's shape; the last
-line is ``{"ok": true, "device": {...}}``.
+source, launches in its main-path phase (5 for K1 and K2, 6 for B3, 9 for
+B4 and B5, summed over the ranks), max error over phases 2-3, 6 and 2d
+and times at the main path's shape; the last line is ``{"ok": true,
+"device": {...}}``.
 Without a GPU it exits with an error before printing any result.
 """
 
@@ -67,6 +90,8 @@ import torch
 
 K1_TOL = 1e-5  # same integer crosstables; only f32 log/sum order may differ
 S_BENCH, L_BENCH = 3000, 30720
+L_SAMPLE_SHARDED = 16384  # phase 9: the crosstables cross the host through gloo
+RANK_TIMEOUT = 600  # seconds for the ranks of one sharded CLI run
 TILE = 512  # the engine's default block-row width
 
 
@@ -108,8 +133,8 @@ def phase_env():
     kernel = "?"
     for line in report.splitlines():
         # a mangled template instance, e.g. ...mi_tile_i8_kernelILi2ELb1EE...: <2, 1>
-        m = re.search(r"entry function '\w*?(mi_tile_(?:i8|bf16)_kernel|route_rows_kernel)"
-                      r"I((?:L[ib]\d+E)+)", line)
+        m = re.search(r"entry function '\w*?((?:mi_tile|crosstab)_(?:i8|bf16)_kernel"
+                      r"|route_rows_kernel|mi_epilogue_kernel)I((?:L[ib]\d+E)+)", line)
         if m:
             kernel = f"{m.group(1)}<{', '.join(re.findall(r'L[ib](\d+)E', m.group(2)))}>"
         elif "registers" in line or "spill" in line:
@@ -243,6 +268,89 @@ def phase_b3(dev, S=3072, TI=512, widths=(512, 30720)):
     return worst
 
 
+def split_compare(label, args, n, n_plain):
+    """B4 and B5 against their plain versions on B3's arguments, and
+    B4 -> xtab_to_f32 -> B5 against K1 and B3 (bit for bit in the int8
+    modes); returns (B4 error, B5 error, times in ms: B4, plain B4, B5,
+    plain B5, dual B5, K1)."""
+    from spydrpick_torch.ops.mi_kernels import (crosstab_tile, crosstab_tile_plain,
+                                                mi_epilogue, mi_epilogue_plain, mi_tile_dual,
+                                                mi_tile_single, xtab_to_f32)
+
+    xi_hi, xi_lo, xj, ipf, jpf, ipwf, jpwf, pc, bw, mults, scale = args
+    int8 = xi_hi.dtype == torch.int8
+    C = crosstab_tile(xi_hi, xi_lo, xj, bw, mults)
+    want = crosstab_tile_plain(xi_hi, xi_lo, xj, mults)
+    torch.cuda.synchronize()
+    if C.dtype != want.dtype or C.shape != want.shape:
+        raise AssertionError(f"B4 {label}: {C.dtype} {tuple(C.shape)} vs plain {want.dtype}")
+    err_b4 = float((C.to(torch.float64) - want.to(torch.float64)).abs().max())
+    if int8 and not torch.equal(C, want):
+        raise AssertionError(f"B4 {label}: int32 crosstable differs by {err_b4}")
+    if not int8 and err_b4 > 1e-5 * float(want.abs().max()):
+        raise AssertionError(f"B4 {label}: max|dC| {err_b4} > 1e-5 of the largest cell")
+    del want
+    Cf = xtab_to_f32(C, scale)
+    mi1 = mi_epilogue(Cf, ipf, jpf, pseudocount=pc, bw=bw)
+    mi, wog = mi_epilogue(Cf, ipf, jpf, ipwf, jpwf, pc, bw)
+    pmi, pwog = mi_epilogue_plain(Cf, ipf, jpf, ipwf, jpwf, pc, bw)
+    torch.cuda.synchronize()
+    if not (bool(torch.isfinite(mi).all()) and bool(torch.isfinite(wog).all())):
+        raise AssertionError(f"B5 {label}: non-finite output")
+    err_b5 = max(float((mi - pmi).abs().max()), float((wog - pwog).abs().max()))
+    if err_b5 > K1_TOL or not torch.equal(mi1, mi):
+        raise AssertionError(f"B5 {label}: max|d| {err_b5} > {K1_TOL}, or single != dual mi")
+    del pmi, pwog
+    k1_args = args[:5] + args[7:]
+    if int8:
+        k1 = mi_tile_single(*k1_args)
+        b3 = mi_tile_dual(*args)
+        if not (torch.equal(mi, k1) and torch.equal(mi, b3[0]) and torch.equal(wog, b3[1])):
+            raise AssertionError(f"B4 -> B5 {label}: differs from K1/B3")
+        del k1, b3
+    del C, mi1, mi, wog
+    times = (cuda_time_ms(lambda: crosstab_tile(xi_hi, xi_lo, xj, bw, mults), n),
+             cuda_time_ms(lambda: crosstab_tile_plain(xi_hi, xi_lo, xj, mults), n_plain),
+             cuda_time_ms(lambda: mi_epilogue(Cf, ipf, jpf, pseudocount=pc, bw=bw), n),
+             cuda_time_ms(lambda: mi_epilogue_plain(Cf, ipf, jpf, pseudocount=pc, bw=bw),
+                          n_plain),
+             cuda_time_ms(lambda: mi_epilogue(Cf, ipf, jpf, ipwf, jpwf, pc, bw), n),
+             cuda_time_ms(lambda: mi_tile_single(*k1_args), n))
+    del Cf
+    torch.cuda.empty_cache()
+    return err_b4, err_b5, times
+
+
+def print_split(label, int8, err_b4, err_b5, times):
+    b4, b4p, b5, b5p, b5d, k1 = times
+    print(f"# 2d {label}: B4 {'int32 equal' if int8 else f'max|dC|={err_b4:.3e}'}, "
+          f"B5 max|d|={err_b5:.3e}{', B4->B5 == K1/B3' if int8 else ''}; B4 {b4:.3f} ms "
+          f"(plain {b4p:.3f}), B5 {b5:.3f} ms (plain {b5p:.3f}, dual {b5d:.3f}), "
+          f"B4+B5 {b4 + b5:.3f} vs K1 {k1:.3f} ms", flush=True)
+
+
+def phase_split(dev, S=3072, TI=512, widths=(512, 30720)):
+    from spydrpick_torch.ops.mi_kernels import BW
+
+    rng = np.random.default_rng(7)
+    err_b4 = err_b5 = 0.0
+    for TJ in widths:
+        for mode in ("fixed14", "unit", "bf16"):
+            xi_hi, xi_lo, xj, ipf, jpf, mults, scale = k1_operands(S, TI, TJ, mode, rng, dev)
+            args = (xi_hi, xi_lo, xj, ipf, jpf, wog_presence(ipf), wog_presence(jpf), 0.5, BW,
+                    mults, scale)
+            n = 20 if TJ == widths[0] else 5
+            e4, e5, times = split_compare(f"{mode} S={S} TJ={TJ}", args, n, 2 if n == 5 else n)
+            if xi_hi.dtype != torch.int8:
+                e4 = 0.0  # bf16 B4 sums in another order: held to its own bound above
+            err_b4, err_b5 = max(err_b4, e4), max(err_b5, e5)
+            print_split(f"{mode:8s} S={S} TI={TI} TJ={TJ:5d}", xi_hi.dtype == torch.int8, e4, e5,
+                        times)
+            del args, xi_hi, xi_lo, xj
+            torch.cuda.empty_cache()
+    return err_b4, err_b5
+
+
 def phase_k1_main(dev, fasta, wfile):
     """K1 and B3 on the engine's own block-row arguments for the bench
     alignment: the main path's shapes, strides and sample tail, in its
@@ -254,6 +362,7 @@ def phase_k1_main(dev, fasta, wfile):
     weights = al.weights
     worst, main_ms, main_plain_ms = 0.0, None, None
     b3_worst, b3 = 0.0, {}
+    split_err, split_ms = [0.0, 0.0], {}
     for mode, mxu_int8, unit in (("fixed14", "auto", False), ("unit", "auto", True),
                                  ("off", "off", False)):
         al.weights = np.ones_like(weights) if unit else weights
@@ -279,10 +388,18 @@ def phase_k1_main(dev, fasta, wfile):
                   f"{plain_ms:.3f} ms, K1 {k1_ms:.3f} ms", flush=True)
             if mode == "fixed14" and i0 == 0:
                 b3 = {"ms": ms, "plain_ms": plain_ms}
+            e4, e5, times = split_compare(f"main-path {mode} i0={i0}", eng.row_dual_args(i0), 5, 2)
+            int8 = mode != "off"
+            split_err[0] = max(split_err[0], e4 if int8 else 0.0)
+            split_err[1] = max(split_err[1], e5)
+            print_split(f"main path {mode:7s} S={eng.S} i0={i0:5d}", int8, e4, e5, times)
+            if mode == "fixed14" and i0 == 0:
+                split_ms.update(b4={"ms": times[0], "plain_ms": times[1]},
+                                b5={"ms": times[2], "plain_ms": times[3]})
         del eng
         torch.cuda.empty_cache()
     al.weights = weights
-    return worst, main_ms, main_plain_ms, b3_worst, b3
+    return worst, main_ms, main_plain_ms, b3_worst, b3, split_err, split_ms
 
 
 def phase_k2(dev, R=512, W=30720):
@@ -557,7 +674,151 @@ def phase_checkpoint(dev, td, fasta, wfile, main_out, main_sweep_s, L=L_BENCH,
     return launches
 
 
+LAUNCH_COUNTERS = ("mi_tile_single", "mi_tile_dual", "route_rows", "crosstab_tile",
+                   "mi_epilogue")
+
+
+def counters():
+    from spydrpick_torch.ops import compact, mi_kernels
+
+    return {name: getattr(compact if name == "route_rows" else mi_kernels, name)
+            for name in LAUNCH_COUNTERS}
+
+
+def rank_main(argv) -> int:
+    """One rank of a sharded CLI run: ``cli.main(argv)``, then its launch
+    counts as the last line."""
+    fns = counters()
+    for fn in fns.values():
+        fn.launches = 0
+    from spydrpick_torch import cli
+
+    rc = cli.main(argv)
+    print(json.dumps({"rc": rc, "launches": {k: fn.launches for k, fn in fns.items()}}))
+    return rc
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(args, out_dir, label, n=2):
+    """``cli.main(args)`` in ``n`` processes joined by the multi-host flags,
+    all on this card; returns each rank's log and launch counts.  Raises
+    if a rank fails or outlives RANK_TIMEOUT (then every rank is killed)."""
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank", *args, "--output-dir", out_dir,
+         "--coordinator-address", f"127.0.0.1:{port}", "--num-processes", str(n),
+         "--process-id", str(r)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(n)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=RANK_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    launches = []
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"{label}: rank {r} exited {p.returncode}:\n{log[-4000:]}")
+        launches.append(json.loads(log.strip().splitlines()[-1])["launches"])
+    return logs, launches
+
+
+def rank_summary(log):
+    stages = dict(re.findall(r"stage time: (\w+) ([\d.]+)s", log))
+    banner = re.search(r"rank \d+ of \d+ on \S+ \(\w+ backend\)", log).group(0)
+    return banner, stages
+
+
+def phase_rows_sharded(td, fasta, wfile, main_out, L=L_BENCH):
+    """Phase 8: phase 5's CLI run with --sharded over two ranks."""
+    out = os.path.join(td, "rows_sharded")
+    t0 = time.perf_counter()
+    logs, launches = run_ranks(main_flags(fasta, wfile) + ["--sharded"], out, "rows-sharded")
+    wall = time.perf_counter() - t0
+    names = assert_same_outputs(main_out, out, "rows-sharded run")
+    n_rows = -(-L // TILE)
+    k1 = sum(x["mi_tile_single"] for x in launches)
+    if (k1 != n_rows or any(x["crosstab_tile"] or x["mi_epilogue"] or x["mi_tile_dual"]
+                            for x in launches)):
+        raise AssertionError(f"rows-sharded launches {launches}: expected {n_rows} K1 in all")
+    for r, log in enumerate(logs):
+        banner, stages = rank_summary(log)
+        if "mesh rows x samples = (2, 1)" not in log:
+            raise AssertionError(f"rows-sharded rank {r} did not run a (2, 1) mesh")
+        print(f"# rows-sharded rank {r}: {banner}; launches {launches[r]}; stage seconds "
+              + ", ".join(f"{k} {v}" for k, v in stages.items()), flush=True)
+    print(f"# rows-sharded S={S_BENCH} L={L}: 2 ranks in {wall:.2f} s, K1 {k1} launches in "
+          f"all, {len(names)} outputs byte-identical to phase 5's", flush=True)
+    return launches
+
+
+def phase_samples_sharded(dev, td, S=S_BENCH, L=L_SAMPLE_SHARDED):
+    """Phase 9: --sharded --sample-shards 2 over two ranks against one
+    process, on a cut of the bench alignment."""
+    from spydrpick_torch.stage_profile import bench_alignment, write_inputs
+
+    codes, w = bench_alignment(S, L, seed=0)
+    fasta, wfile = write_inputs(td, "samples", codes, w)
+    del codes
+    _, engine, thr = pipeline_engine(dev, fasta, wfile)
+    del engine
+    torch.cuda.empty_cache()
+    flags = main_flags(fasta, wfile)
+    single = os.path.join(td, "samples_single")
+    text, _ = cli_run(flags + ["--output-dir", single], "single-process")
+    thr_single = float(re.search(r"MI save threshold = ([\d.]+)", text).group(1))
+    print(f"# samples-sharded S={S} L={L} single-process run: stage seconds "
+          + ", ".join(f"{k} {v}" for k, v in re.findall(r"stage time: (\w+) ([\d.]+)s", text)),
+          flush=True)
+    from spydrpick_torch.parallel.mesh import XTAB_COLS
+
+    n_rows = -(-L // TILE)
+    # one B4 and one B5 per XTAB_COLS-wide j-chunk of each block-row
+    n_chunks = sum(-(-(n_rows * TILE - i0) // XTAB_COLS) for i0 in range(0, L, TILE))
+    result = None
+    for label, extra in (("given threshold", ["--mi-threshold", repr(thr)]),
+                         ("sharded tournament", [])):
+        out = os.path.join(td, "samples_sharded_" + str(len(extra)))
+        t0 = time.perf_counter()
+        logs, launches = run_ranks(flags + extra + ["--sharded", "--sample-shards", "2"], out,
+                                   f"samples-sharded ({label})")
+        wall = time.perf_counter() - t0
+        names = assert_same_outputs(single, out, f"samples-sharded run ({label})")
+        for r, (log, n) in enumerate(zip(logs, launches)):
+            if (n["crosstab_tile"] != n_chunks or n["mi_epilogue"] != n_chunks
+                    or n["route_rows"] != n_rows or n["mi_tile_single"] or n["mi_tile_dual"]):
+                raise AssertionError(f"samples-sharded rank {r} launches {n}: expected "
+                                     f"{n_chunks} B4 and B5, {n_rows} K2, no K1/B3")
+            if f"{S // 2} sample rows" not in log or "mesh rows x samples = (1, 2)" not in log:
+                raise AssertionError(f"samples-sharded rank {r} did not hold {S // 2} samples "
+                                     "on a (1, 2) mesh")
+            banner, stages = rank_summary(log)
+            print(f"# samples-sharded ({label}) rank {r}: {banner}; launches {n}; stage "
+                  "seconds " + ", ".join(f"{k} {v}" for k, v in stages.items()), flush=True)
+        line = f"# samples-sharded S={S} L={L} ({label}): 2 ranks in {wall:.2f} s, " \
+               f"{len(names)} outputs byte-identical to the single-process run's"
+        if not extra:
+            thr_sh = float(re.search(r"MI save threshold = ([\d.]+)", logs[0]).group(1))
+            line += f"; threshold sharded {thr_sh:.6f} vs single-process {thr_single:.6f}"
+        print(line + f" (exact single-process threshold {thr!r})", flush=True)
+        if result is None:
+            result = launches
+    return result
+
+
 def main() -> int:
+    if len(sys.argv) > 1 and sys.argv[1] == "--rank":
+        return rank_main(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to PyTorch", file=sys.stderr)
         return 2
@@ -567,16 +828,20 @@ def main() -> int:
     phase_env()
     k1_err = phase_k1(dev)
     b3_err = phase_b3(dev)
+    b4_err, b5_err = phase_split(dev)
     with tempfile.TemporaryDirectory() as td:
         codes, w = bench_alignment(S_BENCH, L_BENCH, seed=0)
         fasta, wfile = write_inputs(td, "bench", codes, w)
         del codes
-        k1_main_err, k1_ms, k1_plain_ms, b3_main_err, b3 = phase_k1_main(dev, fasta, wfile)
+        (k1_main_err, k1_ms, k1_plain_ms, b3_main_err, b3, split_err,
+         split_ms) = phase_k1_main(dev, fasta, wfile)
         k2_err, k2_ms, k2_plain_ms = phase_k2(dev)
         phase_parity(dev, td)
         launches, main_out, main_sweep_s = phase_main(dev, td, fasta, wfile)
         dual_launches, dual_err = phase_dual_sweep(dev, fasta, wfile)
         phase_checkpoint(dev, td, fasta, wfile, main_out, main_sweep_s)
+        phase_rows_sharded(td, fasta, wfile, main_out)
+        split_launches = phase_samples_sharded(dev, td)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     kernels = [
@@ -592,6 +857,14 @@ def main() -> int:
          "replaces": "spydrpick_tpu/ops/mi_pallas.py:523",
          "launches": dual_launches["mi_tile_dual"],
          "max_abs_err": max(b3_err, b3_main_err, dual_err), **b3},
+        {"name": "crosstab_tile", "route": "cuda", "source": "spydrpick_torch/csrc/xtab.cu",
+         "replaces": "spydrpick_tpu/ops/mi_pallas.py:404",
+         "launches": sum(x["crosstab_tile"] for x in split_launches),
+         "max_abs_err": max(b4_err, split_err[0]), **split_ms["b4"]},
+        {"name": "mi_epilogue", "route": "cuda", "source": "spydrpick_torch/csrc/xtab.cu",
+         "replaces": "spydrpick_tpu/ops/mi_pallas.py:468",
+         "launches": sum(x["mi_epilogue"] for x in split_launches),
+         "max_abs_err": max(b5_err, split_err[1]), **split_ms["b5"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

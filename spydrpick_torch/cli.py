@@ -12,11 +12,17 @@ defaults and meanings, except:
   * ``--checkpoint`` snapshots are the reference's format, but one written
     by the JAX engine does not resume here (its sample axis is padded, so
     its key differs) and the sweep starts afresh;
+  * several processes run one analysis under ``torchrun`` or with the
+    multi-host flags (``--coordinator-address``, ``--num-processes``,
+    ``--process-id``, a tcp:// rendezvous; parallel/distributed.py, which
+    also names the backend rule); ``--sharded`` then sweeps over them and
+    ``--sample-shards k`` shards the samples k ways, which k must divide
+    the process count for; every process ends with the same results and
+    only process 0 writes files;
   * what this engine does not run yet is refused with a "not yet ported"
-    error and exit code 1 (``_not_yet_ported``): ``--sharded``,
-    ``--sample-shards`` > 1, the multi-host flags,
-    ``--row-window`` > 1 and ``--onehot-storage codes``
-    (``--onehot-storage auto`` resolves to dense).
+    error and exit code 1 (``_not_yet_ported``): ``--row-window`` > 1,
+    ``--onehot-storage codes`` (``--onehot-storage auto`` resolves to
+    dense) and ``--checkpoint`` in a run of several processes.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import os
 import sys
 
 from spydrpick_torch.engine.aracne import DEFAULT_EDGE_THRESHOLD
+from spydrpick_torch.parallel.distributed import initialize_distributed, shutdown
 from spydrpick_torch.pipeline import PipelineOptions, run_pipeline
 from spydrpick_torch.version import TITLE, version_string
 
@@ -140,27 +147,32 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--profile-dir", help="write a torch.profiler trace of the sweep here")
     g.add_argument("--jax-cache-dir", default=None, help="TPU engine option, ignored here")
     g.add_argument("--sharded", action="store_true",
-                   help="shard the sweep over all devices (not yet ported)")
+                   help="shard the sweep over every process of the run (torchrun or the "
+                        "multi-host flags)")
     g.add_argument("--sample-shards", type=int, default=1,
-                   help="with --sharded: shard the alignment over devices (not yet ported)")
+                   help="with --sharded: shard the alignment's samples over this many "
+                        "processes (2-D rows x samples mesh)")
 
-    g = p.add_argument_group("multi-host options (not yet ported)")
+    g = p.add_argument_group("multi-host options (a tcp:// rendezvous, one device each)")
     g.add_argument("--coordinator-address", help="host:port of process 0")
     g.add_argument("--num-processes", type=int, help="total process count")
     g.add_argument("--process-id", type=int, help="this process's id")
     return p
 
 
+def _world_size(args) -> int:
+    """Processes in the run, from the multi-host flags or torchrun's
+    environment."""
+    if args.num_processes is not None:
+        return args.num_processes
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
 def _not_yet_ported(args) -> list[str]:
     """The given flags this engine cannot run yet."""
     bad = []
-    if args.sharded:
-        bad.append("--sharded")
-    if args.sample_shards > 1:
-        bad.append("--sample-shards > 1")
-    if (args.coordinator_address is not None or args.num_processes is not None
-            or args.process_id is not None):
-        bad.append("multi-host flags")
+    if args.checkpoint and _world_size(args) > 1:
+        bad.append("--checkpoint with several processes")
     if args.row_window > 1:
         bad.append("--row-window > 1")
     if args.onehot_storage == "codes":
@@ -182,6 +194,23 @@ def main(argv=None) -> int:
               "(the JAX package spydrpick_tpu runs these)", file=sys.stderr)
         return 1
 
+    world = _world_size(args)
+    if args.sample_shards < 1 or (args.sharded and world > 1 and world % args.sample_shards):
+        print(f"spydrpick-torch ERROR: --sample-shards {args.sample_shards} does not divide "
+              f"the {world} processes of the run", file=sys.stderr)
+        return 1
+    try:
+        initialize_distributed(args.coordinator_address, args.num_processes, args.process_id)
+    except ValueError as e:
+        print(f"spydrpick-torch ERROR: {e}", file=sys.stderr)
+        return 1
+    try:
+        return _run(args)
+    finally:
+        shutdown()
+
+
+def _run(args) -> int:
     print(version_string())
     ignored = [k for k, default in IGNORED.items() if getattr(args, k) != default]
     if args.verbose and ignored:
@@ -226,6 +255,8 @@ def main(argv=None) -> int:
         profile_dir=args.profile_dir,
         checkpoint=args.checkpoint,
         checkpoint_every=args.checkpoint_every,
+        sharded=args.sharded,
+        sample_shards=args.sample_shards,
     )
     try:
         run_pipeline(opts)

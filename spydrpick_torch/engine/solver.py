@@ -175,10 +175,17 @@ def int8_mode_for(weights: np.ndarray, mxu_int8: str, n_samples: int) -> tuple[s
     return "off", 0.0
 
 
-def build_device_data(alignment: Alignment, config: EngineConfig,
-                      device: torch.device) -> tuple[DeviceData, SweepStatics]:
+def build_device_data(alignment: Alignment, config: EngineConfig, device: torch.device,
+                      samples: tuple[int, int] | None = None
+                      ) -> tuple[DeviceData, SweepStatics]:
     """Materialise the device tensors and statics for an alignment
-    (dense slab storage; counterpart of solver.py:1008-1187)."""
+    (dense slab storage; counterpart of solver.py:1008-1187).
+
+    ``samples=(lo, hi)``: only sample rows [lo, hi) of the one-hot, the
+    weights and the codes are materialised (a sample shard, and S in the
+    statics is hi - lo); presence, wo-gaps presence, gaps, the int8 mode
+    and its scale still come from the whole alignment, since the
+    crosstables they serve are sums over every shard."""
     tile = config.tile
     if tile <= 0 or tile % BW:
         raise ValueError(f"tile {tile} must be a positive multiple of {BW}")
@@ -191,10 +198,15 @@ def build_device_data(alignment: Alignment, config: EngineConfig,
     w = (np.ones(S) if alignment.weights is None
          else np.asarray(alignment.weights, dtype=np.float64))
     int8_mode, int8_scale = int8_mode_for(w, config.mxu_int8, S)
+    unit_weights = bool(np.all(w == 1.0))
     sdtype = torch.int8 if int8_mode != "off" else torch.bfloat16
+    lo, hi = (0, S) if samples is None else samples
+    if not 0 <= lo <= hi <= S:
+        raise ValueError(f"sample range [{lo}, {hi}) outside [0, {S})")
+    S, w = hi - lo, w[lo:hi]
 
     codes = np.full((S, Lp), 255, dtype=np.uint8)
-    codes[:, :L] = alignment.codes
+    codes[:, :L] = alignment.codes[lo:hi]
     codes_d = torch.from_numpy(codes).to(device)
     states = torch.arange(N_STATES, dtype=torch.uint8, device=device)
     oh = (codes_d.view(S, Lp // BW, 1, BW) == states.view(1, 1, N_STATES, 1))
@@ -219,7 +231,7 @@ def build_device_data(alignment: Alignment, config: EngineConfig,
         L=L, Lp=Lp, S=S, tile=tile, pseudocount=config.pseudocount,
         ld_threshold=config.ld_threshold, linear_genome=config.linear_genome,
         genome_size=int(alignment.n_original_positions),
-        unit_weights=bool(np.all(w == 1.0)), int8_mode=int8_mode,
+        unit_weights=unit_weights, int8_mode=int8_mode,
         int8_scale=int8_scale, wog_lazy=config.wog_fetch == "outliers",
     )
     return data, statics
@@ -270,33 +282,31 @@ def _wog_effective(data: DeviceData, st: SweepStatics, mi: torch.Tensor,
     return torch.where(gi[:, None] | gj[None, :], wog, mi)
 
 
-def _pairs_xtab(data: DeviceData, ipos: torch.Tensor, jpos: torch.Tensor) -> torch.Tensor:
-    """(P, 5, 5) weighted joint-count tables of explicit position pairs
-    (solver.py:862-891): the joint state ``ci*5 + cj`` of every (sample,
-    pair) cell is compared with the 25 joint states and the weights summed
-    over samples — a plain reduction, deterministic on the card (no
-    scatter/index_add atomics).  Pad rows (code 255) match nothing."""
-    ci = data.codes.index_select(1, ipos).to(torch.int32)
-    cj = data.codes.index_select(1, jpos).to(torch.int32)
-    q = ci * N_STATES + cj                                          # (S, P)
+def codes_xtab(ci: torch.Tensor, cj: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """(P, 5, 5) weighted joint-count tables of P column pairs from their
+    (S, P) uint8 codes and the (S,) weights: the joint state ``ci*5 + cj``
+    of every (sample, pair) cell is compared with the 25 joint states and
+    the weights summed over samples — a plain reduction, deterministic on
+    the card (no scatter/index_add atomics).  Pad rows (code 255) match
+    nothing."""
+    q = ci.to(torch.int32) * N_STATES + cj.to(torch.int32)          # (S, P)
     k = torch.arange(N_STATES * N_STATES, dtype=torch.int32, device=q.device)
     C = torch.where(q[:, None, :] == k[None, :, None],
-                    data.weights[:, None, None], 0.0).sum(dim=0)    # (25, P)
+                    weights[:, None, None], 0.0).sum(dim=0)         # (25, P)
     return C.T.reshape(-1, N_STATES, N_STATES)
 
 
-def pairs_mi_core(data: DeviceData, st: SweepStatics, ipos, jpos) -> torch.Tensor:
-    """Per-pair with-gaps MI (solver.py:894; mi.hpp:183-224)."""
-    C = _pairs_xtab(data, ipos, jpos)
+def pairs_mi_core(data: DeviceData, st: SweepStatics, ipos, jpos, C) -> torch.Tensor:
+    """Per-pair with-gaps MI (solver.py:894; mi.hpp:183-224) from the
+    pairs' (P, 5, 5) crosstables ``C``."""
     return mi_from_crosstabs(C, data.presence[ipos], data.presence[jpos], st.pseudocount)
 
 
-def pairs_mi_dual_core(data: DeviceData, st: SweepStatics, ipos, jpos):
+def pairs_mi_dual_core(data: DeviceData, st: SweepStatics, ipos, jpos, C):
     """(mi, effective wog) per pair (solver.py:904): the wo-gaps MI reuses
     the crosstable with the gap bit cleared from the presence, and falls
     back to mi where neither column has gaps (mi.hpp:433,466-490 +
     SpydrPick.hpp:106-107)."""
-    C = _pairs_xtab(data, ipos, jpos)
     mi = mi_from_crosstabs(C, data.presence[ipos], data.presence[jpos], st.pseudocount)
     wog = mi_from_crosstabs(C, data.presence_wog[ipos], data.presence_wog[jpos],
                             st.pseudocount)
@@ -392,14 +402,24 @@ class MIEngine:
         return mi, _wog_effective(self.data, self.statics, mi, wog, i0)
 
     # ------------------------------------------------------------------ #
+    def pairs_table(self, ipos: torch.Tensor, jpos: torch.Tensor) -> torch.Tensor:
+        """(P, 5, 5) weighted joint-count tables of explicit position pairs
+        over every sample (solver.py:862-891)."""
+        d = self.data
+        return codes_xtab(d.codes.index_select(1, ipos), d.codes.index_select(1, jpos),
+                          d.weights)
+
     def _pairs(self, fn, ipos, jpos):
-        """Run a pairs core over chunks of explicit pairs; returns the
-        per-pair outputs on the device, concatenated."""
+        """Run a pairs core over chunks of explicit pairs, with their
+        crosstables from ``pairs_table``; returns the per-pair outputs on
+        the device, concatenated."""
         ii = torch.as_tensor(np.asarray(ipos, dtype=np.int64)).to(self.device)
         jj = torch.as_tensor(np.asarray(jpos, dtype=np.int64)).to(self.device)
         c = self._pairs_chunk
-        outs = [fn(self.data, self.statics, ii[p:p + c], jj[p:p + c])
-                for p in range(0, len(ii), c)]
+        outs = []
+        for p in range(0, len(ii), c):
+            i, j = ii[p:p + c], jj[p:p + c]
+            outs.append(fn(self.data, self.statics, i, j, self.pairs_table(i, j)))
         if not outs:
             return torch.empty(0, dtype=torch.float32, device=self.device)
         return torch.cat(outs)
@@ -450,36 +470,18 @@ class MIEngine:
             host = ckpt_mod.SweepCheckpoint(key, set(), np.full(L, -np.inf), [], [], [], [])
         # mi > threshold compares in f32, as the reference's f32 buffers do
         thr = torch.tensor(threshold, dtype=torch.float32, device=dev)
-        neg = torch.tensor(-np.inf, dtype=torch.float32, device=dev)
         colmax = torch.full((Lp,), -np.inf, dtype=torch.float32, device=dev)
         colmax[:L] = torch.from_numpy(host.colmax).to(device=dev, dtype=torch.float32)
-        lanes = torch.arange(Lp, dtype=torch.int32, device=dev)
-        rows = torch.arange(T, dtype=torch.int64, device=dev)
         parts: list[tuple] = []
         todo = [i0 for i0 in range(0, L, T) if i0 not in host.done_rows]
         every = max(1, checkpoint_every)
         ckpt_s = 0.0
         for k, i0 in enumerate(todo):
             t_row = time.perf_counter()
-            if st.wog_lazy:
-                mi_buf, wog_buf = self.row_mi(i0), None          # K1
-            else:
-                mi_buf, wog_buf = self.row_mi_dual(i0)           # B3
-            store_base, colmax_mask = row_masks(d, st, i0)
-            masked = torch.where(colmax_mask, mi_buf, neg)
-            colmax[i0:] = torch.maximum(colmax[i0:], masked.amax(dim=0))
-            colmax[i0:i0 + T] = torch.maximum(colmax[i0:i0 + T], masked.amax(dim=1))
-            store = store_base & (mi_buf > thr)
-            r_mi, r_j, r_wog, counts = route_rows(store, mi_buf, wog_buf)  # K2
-            n = int(counts.sum())
-            if n:
-                live = lanes[None, :Lp - i0] < counts[:, None]
-                parts.append((
-                    torch.repeat_interleave(rows + i0, counts.to(torch.int64), output_size=n),
-                    r_j[live].to(torch.int64) + i0,
-                    r_mi[live],
-                    None if r_wog is None else r_wog[live],
-                ))
+            part = self.row_edges(i0, thr, colmax)
+            n = 0 if part is None else len(part[0])
+            if part is not None:
+                parts.append(part)
             host.done_rows.add(i0)
             if progress is not None:
                 progress(i0, min(i0 + T, L), n, time.perf_counter() - t_row)
@@ -512,6 +514,34 @@ class MIEngine:
             timings["wog_s"] = time.perf_counter() - t2
             timings["n_rows"] = len(todo)
         return EdgeSet(ipos=s_i, jpos=s_j, mi=s_m, mi_wog=s_w, colmax=colmax_h)
+
+    def row_edges(self, i0: int, thr: torch.Tensor, colmax: torch.Tensor):
+        """Sweep block-row i0: its MI (``row_mi`` in lazy-wog sweeps, else
+        mi and effective wog from ``row_mi_dual``), the colmax update (in
+        place, over the LD-gated mask), and its edges mi > thr compacted by
+        K2.  Returns the device edge part (ipos, jpos, mi, wog or None), or
+        None when the row has no edge."""
+        st, T, Lp = self.statics, self.statics.tile, self.statics.Lp
+        dev = colmax.device
+        if st.wog_lazy:
+            mi_buf, wog_buf = self.row_mi(i0), None             # K1 (B4 -> B5 in a view)
+        else:
+            mi_buf, wog_buf = self.row_mi_dual(i0)              # B3 (B4 -> B5 in a view)
+        store_base, colmax_mask = row_masks(self.data, st, i0)
+        masked = torch.where(colmax_mask, mi_buf, torch.tensor(-np.inf, device=dev))
+        colmax[i0:] = torch.maximum(colmax[i0:], masked.amax(dim=0))
+        colmax[i0:i0 + T] = torch.maximum(colmax[i0:i0 + T], masked.amax(dim=1))
+        store = store_base & (mi_buf > thr)
+        r_mi, r_j, r_wog, counts = route_rows(store, mi_buf, wog_buf)  # K2
+        n = int(counts.sum())
+        if not n:
+            return None
+        live = torch.arange(Lp - i0, dtype=torch.int32, device=dev)[None, :] < counts[:, None]
+        rows = torch.arange(i0, i0 + T, dtype=torch.int64, device=dev)
+        return (torch.repeat_interleave(rows, counts.to(torch.int64), output_size=n),
+                r_j[live].to(torch.int64) + i0,
+                r_mi[live],
+                None if r_wog is None else r_wog[live])
 
     @staticmethod
     def _edges_to_host(parts: list[tuple], host: "ckpt_mod.SweepCheckpoint") -> None:

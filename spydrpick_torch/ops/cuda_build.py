@@ -6,7 +6,9 @@ with a plain C interface (no PyTorch headers, so the build takes
 seconds), at the first kernel launch of a process, into
 ``build/kernels/`` of the checkout.  ``ctypes`` loads it; the wrappers in
 ``ops/mi_kernels.py`` and ``ops/compact.py`` pass device pointers and
-PyTorch's current CUDA stream.  A failed build raises with the
+PyTorch's current CUDA stream.  The ranks of a sharded run may build at
+once: each compiles into files of its own and renames the library into
+place, so none loads a half-written one.  A failed build raises with the
 compiler's output.
 """
 
@@ -37,6 +39,12 @@ _SIGNATURES = {
     # ldo, S, TI, TJ, bw_i, bw_j, n_passes, m0, m1, acc_scale, pc, stream
     "spk_mi_tile_dual": [_i, _vp, _vp, _vp, _ll, _ll, _vp, _vp, _vp, _vp, _vp, _vp,
                          _ll, _i, _i, _i, _i, _i, _i, _d, _d, _f, _f, _vp],
+    # dtype, xi_hi, xi_lo, xj, ldi, ldj, out, ldc, S, TI, TJ, bw_i, bw_j,
+    # n_passes, m0, m1, stream
+    "spk_crosstab_tile": [_i, _vp, _vp, _vp, _ll, _ll, _vp, _ll, _i, _i, _i, _i, _i, _i,
+                          _d, _d, _vp],
+    # C, ldc, ipf, jpf, ipwf, jpwf, out, out_wog, ldo, TI, TJ, bw_i, bw_j, pc, stream
+    "spk_mi_epilogue": [_vp, _ll, _vp, _vp, _vp, _vp, _vp, _vp, _ll, _i, _i, _i, _i, _f, _vp],
     # mask, mi, wog, omi, oj, owog, counts, R, W, stream
     "spk_route_rows": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _vp],
 }

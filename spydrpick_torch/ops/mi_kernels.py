@@ -1,6 +1,7 @@
-"""Kernels K1 and B3: the all-pairs MI tile (ports of
+"""Kernels K1 and B3, the all-pairs MI tile (ports of
 spydrpick_tpu/ops/mi_pallas.py:mi_tile_pallas_single and its dual,
-mi_tile_pallas).
+mi_tile_pallas), and B4 and B5, the same tile split around a sum over
+sample shards (ports of crosstab_tile_pallas and mi_epilogue_pallas).
 
 ``mi_tile_single`` (K1) computes the (TI, TJ) f32 with-gaps MI of every
 column pair from slab-layout one-hot operands: the weighted crosstable
@@ -8,12 +9,15 @@ C = sum_passes mult * (Xi^T Xj) over samples, then f32(C) * acc_scale,
 then the fused pseudocount + entropy epilogue of ``_mi_from_block``.
 ``mi_tile_dual`` (B3) runs the same epilogue twice on one crosstable:
 with the presence vectors (mi, bit-equal to K1's) and with the wo-gaps
-presence vectors (wog).  On CUDA tensors each launches the hand-written
-kernel in ``csrc/mi_tile.cu`` (design notes there); on CPU tensors they
-run ``mi_tile_single_plain`` / ``mi_tile_dual_plain``, the same functions
-in plain PyTorch.  One launch may cover a whole block-row (TJ = every
-column from the diagonal tile on): it is the same function on a wider
-tile.
+presence vectors (wog).  ``crosstab_tile`` (B4) returns the crosstable
+itself, unscaled (int32 for int8 operands), so that sample shards can sum
+it exactly; ``xtab_to_f32`` converts the sum as K1 does and
+``mi_epilogue`` (B5) runs K1's epilogue on it.  On CUDA tensors each
+launches its hand-written kernel in ``csrc/mi_tile.cu`` or
+``csrc/xtab.cu`` (design notes there); on CPU tensors it runs its
+``*_plain`` twin, the same function in plain PyTorch.  One launch may
+cover a whole block-row (TJ = every column from the diagonal tile on): it
+is the same function on a wider tile.
 
 Operand modes (the engine's int8-mode rule picks one,
 engine/solver.py:build_device_data):
@@ -100,13 +104,12 @@ def _passes(xi_hi, xi_lo, pass_mults):
     return xs, tuple(pass_mults[: len(xs)])
 
 
-def crosstab_plain(xi_hi, xi_lo, xj, pass_mults: tuple = (1, 1),
-                   acc_scale: float = 1.0) -> torch.Tensor:
-    """(TI*5, TJ*5) f32 slab crosstable of the kernels' operands.  int8
-    operands: the exact integer product, taken in float64 (exact: counts
-    < 2^53; integer matmul does not exist on CUDA) and cast to int32,
-    then round-to-nearest to f32.  bf16 operands: f32 products of the
-    exact f32 upcasts."""
+def crosstab_tile_plain(xi_hi, xi_lo, xj, pass_mults: tuple = (1, 1)) -> torch.Tensor:
+    """Plain-PyTorch twin of B4: the (TI*5, TJ*5) slab crosstable of the
+    kernels' operands, unscaled.  int8 operands: the exact int32 counts
+    sum_p mult_p * (Xi_p^T Xj), taken in float64 (exact: counts < 2^53;
+    integer matmul does not exist on CUDA).  bf16 operands: f32 products
+    of the exact f32 upcasts, summed over the passes."""
     xs, mults = _passes(xi_hi, xi_lo, pass_mults)
     f32 = torch.float32
     if xi_hi.dtype == torch.int8:
@@ -117,18 +120,45 @@ def crosstab_plain(xi_hi, xi_lo, xj, pass_mults: tuple = (1, 1),
             if m != 1:
                 d = d * m
             acc = d if acc is None else acc + d
-        C = acc.to(torch.int32).to(f32)
-    else:
-        xjf = xj.to(f32)
-        C = None
-        for m, x in zip(mults, xs):
-            d = x.to(f32).T @ xjf
-            if m != 1:
-                d = d * torch.tensor(m, dtype=f32)
-            C = d if C is None else C + d
-    if acc_scale != 1.0:
-        C = C * torch.tensor(acc_scale, dtype=f32, device=C.device)
+        return acc.to(torch.int32)
+    xjf = xj.to(f32)
+    C = None
+    for m, x in zip(mults, xs):
+        d = x.to(f32).T @ xjf
+        if m != 1:
+            d = d * torch.tensor(m, dtype=f32)
+        C = d if C is None else C + d
     return C
+
+
+def xtab_to_f32(C: torch.Tensor, acc_scale: float = 1.0) -> torch.Tensor:
+    """A crosstable in weight units: int32 counts round to nearest f32,
+    then one f32 multiply by f32(acc_scale) — the rounding of K1's
+    ``__fmul_rn(__int2float_rn(c), acc_scale)``, so a sample-sharded
+    sweep that sums int32 partials and converts after the sum gets K1's
+    values bit for bit (solver.py:558-565)."""
+    C = C.to(torch.float32)
+    if acc_scale != 1.0:
+        C = C * torch.tensor(acc_scale, dtype=torch.float32, device=C.device)
+    return C
+
+
+def crosstab_plain(xi_hi, xi_lo, xj, pass_mults: tuple = (1, 1),
+                   acc_scale: float = 1.0) -> torch.Tensor:
+    """(TI*5, TJ*5) f32 slab crosstable in weight units, as K1 and B3
+    feed it to their epilogue."""
+    return xtab_to_f32(crosstab_tile_plain(xi_hi, xi_lo, xj, pass_mults), acc_scale)
+
+
+def mi_epilogue_plain(C, ipf, jpf, ipwf=None, jpwf=None, pseudocount: float = 0.5,
+                      bw: int = BW):
+    """Plain-PyTorch twin of B5: mi, or (mi, wog) when the wo-gaps
+    presence is given, of a (TI*5, TJ*5) f32 slab crosstable."""
+    f32 = torch.float32
+    mi = mi_from_block_plain(C, ipf.to(f32), jpf.to(f32), pseudocount, bw)
+    if ipwf is None:
+        return mi
+    return mi, mi_from_block_plain(C, ipwf.to(f32), jpwf.to(f32), pseudocount, bw)
 
 
 def mi_tile_single_plain(xi_hi, xi_lo, xj, ipf, jpf, pseudocount: float = 0.5,
@@ -137,7 +167,7 @@ def mi_tile_single_plain(xi_hi, xi_lo, xj, ipf, jpf, pseudocount: float = 0.5,
     """Plain-PyTorch twin of K1 (the CPU path, and the card-side
     reference)."""
     C = crosstab_plain(xi_hi, xi_lo, xj, pass_mults, acc_scale)
-    return mi_from_block_plain(C, ipf.to(torch.float32), jpf.to(torch.float32), pseudocount, bw)
+    return mi_epilogue_plain(C, ipf, jpf, pseudocount=pseudocount, bw=bw)
 
 
 def mi_tile_dual_plain(xi_hi, xi_lo, xj, ipf, jpf, ipwf, jpwf, pseudocount: float = 0.5,
@@ -146,9 +176,7 @@ def mi_tile_dual_plain(xi_hi, xi_lo, xj, ipf, jpf, ipwf, jpwf, pseudocount: floa
     """Plain-PyTorch twin of B3: (mi, wog) from one crosstable; mi is
     ``mi_tile_single_plain``'s value bit for bit."""
     C = crosstab_plain(xi_hi, xi_lo, xj, pass_mults, acc_scale)
-    f32 = torch.float32
-    return (mi_from_block_plain(C, ipf.to(f32), jpf.to(f32), pseudocount, bw),
-            mi_from_block_plain(C, ipwf.to(f32), jpwf.to(f32), pseudocount, bw))
+    return mi_epilogue_plain(C, ipf, jpf, ipwf, jpwf, pseudocount, bw)
 
 
 def _check_operands(name, xi_hi, xi_lo, xj, presence, bw, pass_mults):
@@ -250,3 +278,71 @@ def mi_tile_dual(xi_hi, xi_lo, xj, ipf, jpf, ipwf, jpwf, pseudocount: float = 0.
 
 
 mi_tile_dual.launches = 0  # kernel launches (CPU calls do not count)
+
+
+def crosstab_tile(xi_hi, xi_lo, xj, bw: int = BW, pass_mults: tuple = (1, 1)) -> torch.Tensor:
+    """B4: the (TI*5, TJ*5) slab crosstable of K1's operands, unscaled:
+    int32 counts for int8 operands (exact, so partial tables of sample
+    shards sum exactly), f32 sums for bf16 operands.  Same operand rules
+    as ``mi_tile_single``."""
+    if xj.device.type == "cpu":
+        return crosstab_tile_plain(xi_hi, xi_lo, xj, pass_mults)
+    if not xj.is_cuda:
+        raise ValueError(f"crosstab_tile: unsupported device {xj.device}")
+    xs, mults, S, TI, TJ = _check_operands("crosstab_tile", xi_hi, xi_lo, xj, (), bw,
+                                           pass_mults)
+    int8 = xi_hi.dtype == torch.int8
+    out = torch.empty((TI * N_STATES, TJ * N_STATES),
+                      dtype=torch.int32 if int8 else torch.float32, device=xj.device)
+    if out.numel() == 0:
+        return out
+    lib = cuda_build.load()
+    rc = lib.spk_crosstab_tile(
+        0 if int8 else 1, xi_hi.data_ptr(), xs[-1].data_ptr(), xj.data_ptr(),
+        xi_hi.stride(0), xj.stride(0), out.data_ptr(), out.stride(0), S, TI, TJ, bw, bw,
+        len(xs), float(mults[0]), float(mults[-1]),
+        torch.cuda.current_stream(xj.device).cuda_stream)
+    cuda_build.check(rc, "crosstab_tile")
+    crosstab_tile.launches += 1
+    return out
+
+
+crosstab_tile.launches = 0  # kernel launches (CPU calls do not count)
+
+
+def mi_epilogue(C, ipf, jpf, ipwf=None, jpwf=None, pseudocount: float = 0.5, bw: int = BW):
+    """B5: mi, or (mi, wog) when the wo-gaps slab presence ipwf/jpwf is
+    given, each (TI, TJ) f32, of a (TI*5, TJ*5) f32 slab crosstable in
+    weight units (unit column stride).  On the same crosstable it equals
+    K1's mi and B3's wog bit for bit."""
+    if C.device.type == "cpu":
+        return mi_epilogue_plain(C, ipf, jpf, ipwf, jpwf, pseudocount, bw)
+    if not C.is_cuda:
+        raise ValueError(f"mi_epilogue: unsupported device {C.device}")
+    TI5, TJ5 = C.shape
+    TI, TJ = TI5 // N_STATES, TJ5 // N_STATES
+    if C.dtype != torch.float32 or C.dim() != 2 or C.stride(1) != 1:
+        raise ValueError("mi_epilogue: C must be 2-D f32 with unit column stride")
+    if TI5 != TI * N_STATES or TJ5 != TJ * N_STATES or TI % bw or TJ % bw:
+        raise ValueError(f"mi_epilogue: tile ({TI}, {TJ}) not in {bw}-column slab blocks")
+    dual = ipwf is not None
+    for p, n in ((ipf, TI5), (jpf, TJ5)) + (((ipwf, TI5), (jpwf, TJ5)) if dual else ()):
+        if (p.dtype != torch.float32 or p.device != C.device or p.shape != (n,)
+                or not p.is_contiguous()):
+            raise ValueError("mi_epilogue: presence must be contiguous f32 (T*5,)")
+    out = torch.empty((TI, TJ), dtype=torch.float32, device=C.device)
+    out_wog = torch.empty_like(out) if dual else None
+    if out.numel() == 0:
+        return (out, out_wog) if dual else out
+    lib = cuda_build.load()
+    rc = lib.spk_mi_epilogue(
+        C.data_ptr(), C.stride(0), ipf.data_ptr(), jpf.data_ptr(),
+        ipwf.data_ptr() if dual else None, jpwf.data_ptr() if dual else None,
+        out.data_ptr(), out_wog.data_ptr() if dual else None, out.stride(0), TI, TJ, bw, bw,
+        float(pseudocount), torch.cuda.current_stream(C.device).cuda_stream)
+    cuda_build.check(rc, "mi_epilogue")
+    mi_epilogue.launches += 1
+    return (out, out_wog) if dual else out
+
+
+mi_epilogue.launches = 0  # kernel launches (CPU calls do not count)

@@ -1,0 +1,247 @@
+"""Sharded all-pairs sweep over the processes of a run (port of
+spydrpick_tpu/parallel/mesh.py).
+
+The processes form a 2-D ``DeviceMesh`` named ("rows", "samples"), rank
+r at (r // k, r % k) for k sample shards, the layout of the reference's
+``np.array(devices).reshape(-1, k)``:
+
+  * "rows": each group of the rows axis sweeps its share of the
+    block-rows (the balanced interleaving ``balanced_row_order``, rank r
+    of the axis taking ``order[r::n_rows]``), with the engine's own
+    per-row steps (MI, colmax, K2 compaction);
+  * "samples" (k > 1): each rank holds only its contiguous slice of the
+    samples (``ShardedEngineView``); a block-row's crosstable is made by
+    kernel B4 on the rank's samples, summed over the axis (int32 for the
+    int8 modes: exact), converted as K1 converts, and kernel B5 runs the
+    entropy epilogue on it, so the MI equals the single-device kernels'
+    bit for bit in the int8 modes (solver.py:540-583 of the reference).
+
+At the end colmax is all-reduced with MAX over "rows" and the edges are
+all-gathered over "rows" (counts first, then payloads padded to the
+largest count, since gloo's all_gather takes equal sizes): every rank
+ends with the same ``EdgeSet``.  The reference's device-resident edge
+stores, epochs, drains and dispatch groups are not ported; each rank
+compacts its rows as the single-device sweep does.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+from spydrpick_tpu.core.alignment import Alignment
+from spydrpick_tpu.core.alphabet import N_STATES
+from spydrpick_torch.device import default_device, synchronize
+from spydrpick_torch.engine.solver import (
+    _PAIRS_BUDGET,
+    DeviceData,
+    EdgeSet,
+    EngineConfig,
+    MIEngine,
+    SweepStatics,
+    _wog_effective,
+    build_device_data,
+    codes_xtab,
+)
+from spydrpick_torch.ops.mi_kernels import crosstab_tile, mi_epilogue, xtab_to_f32
+
+# j-columns per B4 launch (a multiple of BW): bounds a block-row's
+# crosstable, its f32 copy and each all-reduce to 2560 x 40960 cells at
+# the default tile (420 MB of int32)
+XTAB_COLS = 8192
+
+
+def make_mesh(n_samples: int = 1) -> DeviceMesh:
+    """The (world // n_samples, n_samples) mesh of every process of the
+    run, named ("rows", "samples"), on the ranks' device type."""
+    world = dist.get_world_size()
+    if n_samples < 1 or world % n_samples:
+        raise ValueError(f"--sample-shards {n_samples} does not divide the world size {world}")
+    return init_device_mesh(default_device().type, (world // n_samples, n_samples),
+                            mesh_dim_names=("rows", "samples"))
+
+
+def sample_range(n_samples_total: int, n_shards: int, shard: int) -> tuple[int, int]:
+    """Sample rows [lo, hi) of one shard: contiguous, sizes differing by
+    at most one, so S need not divide by the shard count."""
+    return (shard * n_samples_total // n_shards, (shard + 1) * n_samples_total // n_shards)
+
+
+def balanced_row_order(n_rows: int) -> list[int]:
+    """Interleave cheap and expensive rows: [0, R-1, 1, R-2, ...]
+    (a copy of the reference's)."""
+    order = []
+    lo, hi = 0, n_rows - 1
+    while lo <= hi:
+        order.append(lo)
+        if hi != lo:
+            order.append(hi)
+        lo += 1
+        hi -= 1
+    return order
+
+
+def axis_size(mesh: DeviceMesh, name: str) -> int:
+    return mesh.size(mesh.mesh_dim_names.index(name))
+
+
+def shard_sample_data(alignment: Alignment, config: EngineConfig, device: torch.device,
+                      n_shards: int, shard: int) -> tuple[DeviceData, SweepStatics]:
+    """Device data and statics of sample shard ``shard`` of ``n_shards``
+    (``sample_range``): the one-hot,
+    weights and codes of its sample rows only (so the engine's fixed14
+    weight digits too), S = its row count; presence, wo-gaps presence,
+    gaps, the int8 mode and its scale from the whole alignment (data built
+    from a sample-sliced alignment would get those wrong, and with them
+    the MI)."""
+    lo, hi = sample_range(alignment.n_samples, n_shards, shard)
+    return build_device_data(alignment, config, device, samples=(lo, hi))
+
+
+class ShardedEngineView(MIEngine):
+    """This rank's sample shard of the engine (``shard_sample_data``),
+    whose block-rows and pairs are summed over the "samples" axis of the
+    mesh, so it answers as the single-device engine does:
+
+      * ``row_mi`` / ``row_mi_dual``: B4 on the rank's samples, in
+        ``XTAB_COLS``-wide j-chunks, each all-reduced over "samples",
+        converted (``xtab_to_f32``) and finished by B5;
+      * ``pair_mi``, ``pair_wog``, ``pair_quantiles`` (tournament, lazy
+        wog): the pairs' codes of every shard are all-gathered in shard
+        order and reduced over all samples with all the weights, the
+        single-device reduction on the same tensors, so the values are
+        the single-device ones bit for bit.  (Summing per-shard f32
+        crosstables, the reference's psum, reassociates the f32 sums and
+        moves ~10% of the printed 6-decimal wo-gaps values at S=3000.)
+
+    Every rank of a samples group must call these together."""
+
+    def __init__(self, alignment: Alignment, config: EngineConfig, mesh: DeviceMesh,
+                 device: torch.device | None = None):
+        device = default_device() if device is None else torch.device(device)
+        S, n_samp = alignment.n_samples, axis_size(mesh, "samples")
+        super().__init__(alignment, config, device, _prebuilt=shard_sample_data(
+            alignment, config, device, n_samp, mesh.get_local_rank("samples")))
+        self.mesh = mesh
+        self.group = mesh.get_group("samples")
+        self._shard_rows = [sample_range(S, n_samp, r) for r in range(n_samp)]
+        w = (np.ones(S) if alignment.weights is None
+             else np.asarray(alignment.weights, dtype=np.float64))
+        self._weights_all = torch.from_numpy(w).to(device=self.device, dtype=torch.float32)
+        # the gathered (S, 25, P) temporary spans every sample
+        self._pairs_chunk = max(128, min(65536, _PAIRS_BUDGET // (S * 25) // 128 * 128))
+
+    def pairs_table(self, ipos: torch.Tensor, jpos: torch.Tensor) -> torch.Tensor:
+        d = self.data
+        mine = torch.stack((d.codes.index_select(1, ipos), d.codes.index_select(1, jpos)))
+        rows = max(hi - lo for lo, hi in self._shard_rows)
+        pad = torch.full((2, rows, mine.shape[2]), 255, dtype=torch.uint8, device=self.device)
+        pad[:, :mine.shape[1]] = mine
+        parts = [torch.empty_like(pad) for _ in self._shard_rows]
+        dist.all_gather(parts, pad, group=self.group)
+        codes = torch.cat([p[:, :hi - lo] for p, (lo, hi) in zip(parts, self._shard_rows)],
+                          dim=1)
+        return codes_xtab(codes[0], codes[1], self._weights_all)
+
+    def _split_row(self, i0: int, dual: bool):
+        """mi (and raw wog when ``dual``) of block-row i0 through B4 ->
+        all-reduce over "samples" -> f32 -> B5, chunk by chunk."""
+        xi_hi, xi_lo, xj, ipf, jpf, pc, bw, mults, scale = self.row_args(i0)
+        c0, c1 = i0 * N_STATES, (i0 + self.tile) * N_STATES
+        ipwf, jpwf = self._pwslab[c0:c1], self._pwslab[c0:]
+        W = xj.shape[1] // N_STATES
+        mis, wogs = [], []
+        for j0 in range(0, W, XTAB_COLS):
+            cols = slice(j0 * N_STATES, min(j0 + XTAB_COLS, W) * N_STATES)
+            C = crosstab_tile(xi_hi, xi_lo, xj[:, cols], bw, mults)            # B4
+            dist.all_reduce(C, group=self.group)
+            C = xtab_to_f32(C, scale)
+            jp = jpf[cols]
+            if dual:
+                mi, wog = mi_epilogue(C, ipf, jp, ipwf, jpwf[cols], pc, bw)       # B5
+                wogs.append(wog)
+            else:
+                mi = mi_epilogue(C, ipf, jp, pseudocount=pc, bw=bw)                # B5
+            mis.append(mi)
+            del C
+        cat = lambda xs: xs[0] if len(xs) == 1 else torch.cat(xs, dim=1)
+        return cat(mis), (cat(wogs) if dual else None)
+
+    def row_mi(self, i0: int) -> torch.Tensor:
+        return self._split_row(i0, dual=False)[0]
+
+    def row_mi_dual(self, i0: int) -> tuple[torch.Tensor, torch.Tensor]:
+        mi, wog = self._split_row(i0, dual=True)
+        return mi, _wog_effective(self.data, self.statics, mi, wog, i0)
+
+
+def _gather_rows(x: torch.Tensor, counts: list[int], group) -> torch.Tensor:
+    """All-gather 1-D tensors of the given per-rank lengths over ``group``,
+    padded to the largest, and concatenate them in rank order."""
+    n = max(max(counts), 1)  # gloo takes no empty tensors
+    pad = torch.zeros(n, dtype=x.dtype, device=x.device)
+    pad[:len(x)] = x
+    parts = [torch.empty_like(pad) for _ in counts]
+    dist.all_gather(parts, pad, group=group)
+    return torch.cat([p[:c] for p, c in zip(parts, counts)])
+
+
+def sharded_sweep(engine: MIEngine, threshold: float, mesh: DeviceMesh, progress=None,
+                  timings: dict | None = None) -> EdgeSet:
+    """All-pairs sweep over the mesh; every rank returns the same
+    ``EdgeSet``, equal to ``MIEngine.sweep``'s on one device (bit for bit
+    in the int8 modes; bf16 crosstables of sample shards sum in another
+    f32 order).  ``engine``: a whole-alignment ``MIEngine`` on a mesh with
+    one sample shard, a ``ShardedEngineView`` of this rank's shard
+    otherwise.  ``progress`` and ``timings`` as for ``MIEngine.sweep``
+    (over this rank's rows)."""
+    if axis_size(mesh, "samples") > 1 and not isinstance(engine, ShardedEngineView):
+        raise ValueError("a mesh with sample shards sweeps a ShardedEngineView")
+    rows_group = mesh.get_group("rows")
+    n_rows_sh = axis_size(mesh, "rows")
+    st, dev = engine.statics, engine.device
+    T, L, Lp = st.tile, st.L, st.Lp
+    synchronize(dev)
+    t0 = time.perf_counter()
+    thr = torch.tensor(threshold, dtype=torch.float32, device=dev)
+    colmax = torch.full((Lp,), -np.inf, dtype=torch.float32, device=dev)
+    mine = [r * T for r in balanced_row_order(-(-L // T))][mesh.get_local_rank("rows")::n_rows_sh]
+    parts = []
+    for i0 in mine:
+        t_row = time.perf_counter()
+        part = engine.row_edges(i0, thr, colmax)
+        if part is not None:
+            parts.append(part)
+        if progress is not None:
+            progress(i0, min(i0 + T, L), 0 if part is None else len(part[0]),
+                     time.perf_counter() - t_row)
+    synchronize(dev)
+    t1 = time.perf_counter()
+    dist.all_reduce(colmax, op=dist.ReduceOp.MAX, group=rows_group)
+    cat = lambda k, dt: (torch.cat([p[k] for p in parts]) if parts
+                         else torch.empty(0, dtype=dt, device=dev))
+    local = [cat(0, torch.int64), cat(1, torch.int64), cat(2, torch.float32)]
+    if not st.wog_lazy:
+        local.append(cat(3, torch.float32))
+    n = torch.tensor([len(local[0])], dtype=torch.int64, device=dev)
+    ns = [torch.empty_like(n) for _ in range(n_rows_sh)]
+    dist.all_gather(ns, n, group=rows_group)
+    counts = [int(x) for x in ns]
+    got = [_gather_rows(x, counts, rows_group).cpu().numpy() for x in local]
+    s_i, s_j, s_m = got[0], got[1], got[2].astype(np.float64)
+    colmax_h = colmax[:L].cpu().numpy().astype(np.float64)
+    t2 = time.perf_counter()
+    if st.wog_lazy:
+        s_w = engine._resolve_deferred_wog(s_m, s_i, s_j, colmax_h)
+    else:
+        s_w = got[3].astype(np.float64)
+    if timings is not None:
+        timings["compute_s"] = t1 - t0
+        timings["fetch_s"] = t2 - t1
+        timings["wog_s"] = time.perf_counter() - t2
+        timings["n_rows"] = len(mine)
+    return EdgeSet(ipos=s_i, jpos=s_j, mi=s_m, mi_wog=s_w, colmax=colmax_h)

@@ -5,6 +5,12 @@ sample weights -> MI save threshold (auto: tournament) -> all-pairs MI
 sweep -> Tukey outlier thresholds -> sort -> ARACNE -> couplings/outlier
 outputs.  Host stages reuse the reference's jax-free modules; the device
 stages run on ``spydrpick_torch.device.default_device()``.
+
+In a run of several processes (``parallel/distributed.py``) every rank
+runs every stage and ends with the same results; only rank 0 writes
+files.  ``sharded`` sweeps the block-rows over the ranks and, with
+``sample_shards`` > 1, shards the samples too (``parallel/mesh.py``); the
+tournament and the lazy wo-gaps resolve then run on the sample shards.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from spydrpick_torch.engine.aracne import DEFAULT_EDGE_THRESHOLD, run_aracne
 from spydrpick_torch.engine.outliers import outlier_thresholds
 from spydrpick_torch.engine.solver import EdgeSet, EngineConfig, MIEngine
 from spydrpick_torch.engine.threshold import default_mi_values, determine_mi_threshold
+from spydrpick_torch.parallel.distributed import is_writer, world_size
 
 
 @dataclasses.dataclass
@@ -82,6 +89,8 @@ class PipelineOptions:
     profile_dir: str | None = None      # torch.profiler trace of the sweep
     checkpoint: str | None = None       # sweep checkpoint file (resume support)
     checkpoint_every: int = 16
+    sharded: bool = False               # sweep over every process of the run
+    sample_shards: int = 1              # with sharded: shard the samples this many ways
 
 
 @dataclasses.dataclass
@@ -113,7 +122,7 @@ def load_and_preprocess(opts: PipelineOptions) -> Alignment:
     _log(opts, f'alignment "{alignment.id_string}": '
          f"{alignment.n_samples} samples x {alignment.n_loci} loci")
 
-    if opts.output_alignment:
+    if opts.output_alignment and is_writer():
         write_fasta(unique_path(f"{opts.output_dir}/{alignment.id_string}.input.fasta"),
                     alignment)
 
@@ -156,18 +165,18 @@ def load_and_preprocess(opts: PipelineOptions) -> Alignment:
     )
     _log(opts, f"effective sample size = {alignment.effective_size:.2f}")
 
-    if opts.output_sample_weights:
+    if opts.output_sample_weights and is_writer():
         with open(unique_path(f"{opts.output_dir}/{alignment.id_string}.weights"), "w") as f:
             write_sample_weights(f, alignment)
-    if opts.output_filtered_alignment:
+    if opts.output_filtered_alignment and is_writer():
         write_fasta(unique_path(f"{opts.output_dir}/{alignment.id_string}.filtered.fasta"),
                     alignment)
-    if opts.output_state_frequencies:
+    if opts.output_state_frequencies and is_writer():
         with open(
             unique_path(f"{opts.output_dir}/{alignment.id_string}.state_frequencies"), "w"
         ) as f:
             write_state_frequencies(f, alignment, opts.output_indexing_base)
-    if opts.output_sample_distance_matrix:
+    if opts.output_sample_distance_matrix and is_writer():
         with open(
             unique_path(f"{opts.output_dir}/{alignment.id_string}.distance_matrix"), "w"
         ) as f:
@@ -197,7 +206,8 @@ def run_pipeline(opts: PipelineOptions, write_outputs: bool = True,
     phases under sweep_phases), sort_s, aracne_s (aracne_phases), write_s
     and total_s.  Each stage boundary waits for the device first, so a
     stage's time includes its device work."""
-    os.makedirs(opts.output_dir, exist_ok=True)
+    if is_writer():
+        os.makedirs(opts.output_dir, exist_ok=True)
     tm = timings if timings is not None else {}
     device = default_device()
 
@@ -213,9 +223,25 @@ def run_pipeline(opts: PipelineOptions, write_outputs: bool = True,
     alignment = load_and_preprocess(opts)
     t_st = _stage("preprocess_s", t_st)
 
-    engine = MIEngine(alignment, engine_config(opts), device=device)
+    # sharded runs build the mesh before the tournament, so that with
+    # sample shards the tournament runs on them too (pipeline.py:248-269)
+    mesh = None
+    if opts.sharded and world_size() > 1:
+        from spydrpick_torch.parallel.mesh import ShardedEngineView, make_mesh
+
+        if opts.checkpoint:
+            raise ValueError("--checkpoint with a sharded sweep over several processes: "
+                             "not yet ported")
+        mesh = make_mesh(opts.sample_shards)
+    elif opts.sharded:
+        _log(opts, "only one device visible; using single-device sweep")
+    if mesh is not None and opts.sample_shards > 1:
+        engine = ShardedEngineView(alignment, engine_config(opts), mesh, device)
+    else:
+        engine = MIEngine(alignment, engine_config(opts), device=device)
     _log(opts, f"engine on {device}: int8 mode {engine.statics.int8_mode}, "
-         f"{engine.S} sample rows x {engine.Lp} columns")
+         f"{engine.S} sample rows x {engine.Lp} columns"
+         + (f", mesh rows x samples = {tuple(mesh.shape)}" if mesh is not None else ""))
     t_st = _stage("engine_build_s", t_st)
 
     mi_threshold = opts.mi_threshold
@@ -240,10 +266,17 @@ def run_pipeline(opts: PipelineOptions, write_outputs: bool = True,
     from spydrpick_torch.utils.profiling import profile_trace
 
     sweep_phases: dict = {}
-    with profile_trace(opts.profile_dir):
-        edges = engine.sweep(mi_threshold, progress=progress if opts.verbose else None,
-                             checkpoint_path=opts.checkpoint,
-                             checkpoint_every=opts.checkpoint_every, timings=sweep_phases)
+    with profile_trace(opts.profile_dir if is_writer() else None):
+        if mesh is not None:
+            from spydrpick_torch.parallel.mesh import sharded_sweep
+
+            edges = sharded_sweep(engine, mi_threshold, mesh,
+                                  progress=progress if opts.verbose else None,
+                                  timings=sweep_phases)
+        else:
+            edges = engine.sweep(mi_threshold, progress=progress if opts.verbose else None,
+                                 checkpoint_path=opts.checkpoint,
+                                 checkpoint_every=opts.checkpoint_every, timings=sweep_phases)
     tm["sweep_phases"] = sweep_phases
     t_st = _stage("sweep_s", t_st)
     _log(opts, f"{edges.n_edges} edges stored")
@@ -276,7 +309,7 @@ def run_pipeline(opts: PipelineOptions, write_outputs: bool = True,
         outlier_threshold=outlier_thr,
         extreme_outlier_threshold=extreme_thr,
     )
-    if write_outputs:
+    if write_outputs and is_writer():
         _write_outputs(opts, result)
         _stage("write_s", t_st)
 

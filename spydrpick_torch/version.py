@@ -7,9 +7,12 @@ TITLE = "spydrpick-torch: MI-ARACNE genome-wide co-evolution analysis on PyTorch
 
 def version_string() -> str:
     """Banner: package version, then the torch version, the CUDA runtime
-    torch was built for and the device the run resolves to (the JAX
-    banner reports the jax/jaxlib versions and backend instead)."""
+    torch was built for, the device the run resolves to and, in a run of
+    several processes, this process's rank, the process count and the
+    collective backend (the JAX banner reports the jax/jaxlib versions
+    and backend instead)."""
     import torch
+    import torch.distributed as dist
 
     from spydrpick_torch.device import default_device
 
@@ -21,4 +24,7 @@ def version_string() -> str:
                      f"{torch.cuda.get_device_name(dev)})")
     else:
         parts.append("cpu device (plain PyTorch kernels)")
+    if dist.is_available() and dist.is_initialized():
+        parts.append(f"rank {dist.get_rank()} of {dist.get_world_size()} on "
+                     f"{dev} ({dist.get_backend()} backend)")
     return " | ".join(parts)

@@ -157,12 +157,12 @@ def test_ignored_tpu_flags_change_nothing(tmp_path, capsys):
         assert (tmp_path / "plain" / n).read_bytes() == (tmp_path / "flags" / n).read_bytes()
 
 
+MULTI_HOST = ["--coordinator-address", "localhost:1234", "--num-processes", "2",
+              "--process-id", "0"]
+
+
 @pytest.mark.parametrize("flags", [
-    ["--sharded"],
-    ["--sample-shards", "2"],
-    ["--coordinator-address", "localhost:1234"],
-    ["--num-processes", "2"],
-    ["--process-id", "0"],
+    ["--checkpoint", "sweep.ckpt"] + MULTI_HOST,
     ["--row-window", "4096"],
     ["--onehot-storage", "codes"],
 ])
@@ -171,6 +171,39 @@ def test_not_yet_ported_flags_exit_1(tmp_path, capsys, flags):
     assert torch_main(args + flags + ["--output-dir", str(tmp_path)]) == 1
     assert "not yet ported" in capsys.readouterr().err
     assert not os.listdir(tmp_path)
+
+
+@pytest.mark.parametrize("flags,message", [
+    (["--sharded", "--sample-shards", "3"] + MULTI_HOST, "does not divide"),
+    (["--sample-shards", "0"], "does not divide"),
+    (["--coordinator-address", "localhost:1234"], "go together"),
+    (["--num-processes", "2"], "go together"),
+    (["--process-id", "0"], "go together"),
+    (MULTI_HOST[:4] + ["--process-id", "2"], "outside"),
+    (["--coordinator-address", "localhost", "--num-processes", "2", "--process-id", "0"],
+     "host:port"),
+])
+def test_bad_sharding_flags_exit_1(tmp_path, capsys, flags, message):
+    """Sharding flags that cannot start a run exit 1 before any process
+    group exists."""
+    args, _, _ = FIXTURES["golden2"]
+    assert torch_main(args + flags + ["--output-dir", str(tmp_path)]) == 1
+    assert message in capsys.readouterr().err
+    assert not os.listdir(tmp_path)
+
+
+def test_sharded_single_process_falls_back_to_single_device(tmp_path, capsys):
+    """--sharded with one process sweeps on one device, as the reference
+    does with one device visible, and writes the same files."""
+    args, _, _ = FIXTURES["golden2"]
+    assert torch_main(args + ["--output-dir", str(tmp_path / "plain")]) == 0
+    assert torch_main(args + ["-v", "--sharded", "--sample-shards", "2",
+                              "--output-dir", str(tmp_path / "sharded")]) == 0
+    assert "only one device visible; using single-device sweep" in capsys.readouterr().out
+    names = sorted(os.listdir(tmp_path / "plain"))
+    assert names == sorted(os.listdir(tmp_path / "sharded"))
+    for n in names:
+        assert (tmp_path / "plain" / n).read_bytes() == (tmp_path / "sharded" / n).read_bytes()
 
 
 def test_bad_tile_and_missing_file_exit_1(tmp_path, capsys):

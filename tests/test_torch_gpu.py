@@ -16,12 +16,17 @@ from spydrpick_torch.engine.solver import EngineConfig, MIEngine
 from spydrpick_torch.ops.compact import route_rows, route_rows_plain
 from spydrpick_torch.ops.mi_kernels import (
     BW,
+    crosstab_tile,
+    crosstab_tile_plain,
+    mi_epilogue,
+    mi_epilogue_plain,
     mi_tile_dual,
     mi_tile_dual_plain,
     mi_tile_single,
     mi_tile_single_plain,
     split_bf16,
     to_slab,
+    xtab_to_f32,
 )
 
 # the kernel and its plain version build the same integer (or bf16-exact)
@@ -211,3 +216,53 @@ def test_cuda_full_wog_sweep_matches_cpu(cuda_device, unit):
     for k in set(ea) & set(eb):
         assert abs(ea[k][0] - eb[k][0]) <= TOL and abs(ea[k][1] - eb[k][1]) <= TOL, k
     np.testing.assert_allclose(a.colmax, b.colmax, rtol=0, atol=TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["unit", "fixed14", "bf16"])
+def test_cuda_b4_b5_match_plain_and_k1_b3(cuda_device, mode):
+    """B4 against its plain version (int32 equal; bf16 within 1e-5 of the
+    largest cell), B5 against its plain version on the same crosstable,
+    and B4 -> convert -> B5 against K1's mi and B3's (mi, wog): bit for
+    bit in the int8 modes."""
+    hi, lo, xj, ipf, jpf, mults, scale = k1_operands(mode, 200, 256, 640, cuda_device)
+    ipwf, jpwf = wog_presence(ipf), wog_presence(jpf)
+    launches = crosstab_tile.launches, mi_epilogue.launches
+    C = crosstab_tile(hi, lo, xj, BW, mults)
+    want = crosstab_tile_plain(hi, lo, xj, mults)
+    torch.cuda.synchronize()
+    assert C.dtype == want.dtype and C.shape == (256 * 5, 640 * 5)
+    if mode == "bf16":
+        assert float((C - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    else:
+        assert torch.equal(C, want)
+    Cf = xtab_to_f32(C, scale)
+    mi = mi_epilogue(Cf, ipf, jpf, pseudocount=0.5, bw=BW)
+    mi2, wog = mi_epilogue(Cf, ipf, jpf, ipwf, jpwf, 0.5, BW)
+    pmi, pwog = mi_epilogue_plain(Cf, ipf, jpf, ipwf, jpwf, 0.5, BW)
+    torch.cuda.synchronize()
+    assert (crosstab_tile.launches, mi_epilogue.launches) == (launches[0] + 1, launches[1] + 2)
+    assert bool(torch.isfinite(mi).all()) and bool(torch.isfinite(wog).all())
+    assert float((mi - pmi).abs().max()) <= TOL and float((wog - pwog).abs().max()) <= TOL
+    assert torch.equal(mi, mi2)
+    if mode != "bf16":
+        assert torch.equal(mi, mi_tile_single(hi, lo, xj, ipf, jpf, 0.5, BW, mults, scale))
+        b3 = mi_tile_dual(hi, lo, xj, ipf, jpf, ipwf, jpwf, 0.5, BW, mults, scale)
+        assert torch.equal(mi, b3[0]) and torch.equal(wog, b3[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["unit", "fixed14"])
+def test_cuda_split_path_on_engine_row_args(cuda_device, mode):
+    """The sample-sharded split path on the engine's own block-row
+    arguments (strided views, TJ = Lp - i0, S = 200 cut 101 + 99): B4 per
+    shard, int32 sum, convert, B5 — K1's mi bit for bit."""
+    al = alignment(200, 1500, unit=mode == "unit")
+    eng = MIEngine(al, EngineConfig(tile=256), device=cuda_device)
+    assert eng.statics.int8_mode == mode
+    for i0 in (0, 768):
+        hi, lo, xj, ipf, jpf, pc, bw, mults, scale = eng.row_args(i0)
+        C = sum(crosstab_tile(hi[a:b], None if lo is None else lo[a:b], xj[a:b], bw, mults)
+                for a, b in ((0, 101), (101, 200)))
+        mi = mi_epilogue(xtab_to_f32(C, scale), ipf, jpf, pseudocount=pc, bw=bw)
+        assert torch.equal(mi, eng.row_mi(i0))
