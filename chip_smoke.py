@@ -6,27 +6,36 @@ Run from the repository root on a machine with an NVIDIA GPU:
 
 Phases (each raises on failure; nothing is caught):
   1. environment and build: versions, the card's name and power limit,
-     and the nvcc build of spydrpick_torch/csrc;
+     the nvcc build of spydrpick_torch/csrc (ptxas registers and spills),
+     the g++ build of the native host libraries (spydrpick_torch/native),
+     and a SASS check (cuobjdump) that K1's and B4's kernels run on the
+     tensor cores: IMMA (int8) or HMMA (bf16), and no IDP.4A;
   2. kernel K1 (MI tile) against its plain PyTorch version, max |dmi| <=
-     1e-5, with both times:
-     a. on contiguous random slab operands at S=3072, TI=512 and TJ in
-        {512, 30720}, in the fixed14, unit-int8 and bf16 modes;
+     1e-5 (0 in the int8 modes), with both times and K1's bound and
+     roofline share:
+     a. on random slab operands at S=3072, TI=512 and TJ in {512, 30720},
+        in the fixed14, unit-int8 and bf16 modes, copied K-major as K1
+        reads them;
      b. at the main path's shapes: the engine's own K1 arguments
-        (``MIEngine.row_args``) for the S=3000 x L=30720 bench alignment,
-        at the first block-row and one in the middle (a strided column
-        view of the one-hot, TJ = Lp - i0, a sample tail of 3000 % 64),
-        in the fixed14, unit-int8 and bf16 modes;
+        (``MIEngine.row_args``: K-major views) for the S=3000 x L=30720
+        bench alignment, at the first block-row and one in the middle
+        (TJ = Lp - i0, a sample tail), in the fixed14, unit-int8 and bf16
+        modes;
      c. kernel B3 (dual MI tile) against its plain version on operands
         made as in 2a and on the engine's own dual block-row arguments
-        (``MIEngine.row_dual_args``) as in 2b: max |dmi| and max |dwog|
-        <= 1e-5, and its mi equal to K1's on the same operands bit for
-        bit; B3, plain and K1 times;
+        (``MIEngine.row_dual_args``, sample-major) as in 2b: max |dmi| and
+        max |dwog| <= 1e-5, and its mi equal to K1's on the same values
+        bit for bit in the int8 modes (within 1e-5 in bf16, where B3's
+        scalar loop and K1's tensor cores sum in other orders); B3, plain
+        and K1 times;
      d. kernels B4 (crosstable tile) and B5 (entropy epilogue) on the same
         operands as 2a and 2b: B4's int32 crosstable equal to its plain
         version (bf16: within 1e-5 of the largest cell), B5's mi and wog
         within 1e-5 of its plain version on B4's crosstable, and B4 ->
         ``xtab_to_f32`` -> B5 equal to K1's mi and B3's (mi, wog) bit for
-        bit in the int8 modes; B4, B5 and plain times beside K1's;
+        bit in the int8 modes; B4, B5 and plain times beside K1's, their
+        bounds and roofline shares, and B4's yardstick (``b4_library``:
+        one PyTorch product per pass, which the port never calls);
   3. kernel K2 (row compaction) against its plain version at (512, 30720)
      and mask densities 0, 1%, 30%, 100%, with and without wog: counts and
      compacted prefixes exactly equal, with both times;
@@ -67,9 +76,11 @@ ARGS``: ``cli.main(ARGS)``, then the launch counts as a JSON line; each
 has a time limit, and a rank that fails fails the phase.
 The line before the last is a JSON object with each kernel's route,
 source, launches in its main-path phase (5 for K1 and K2, 6 for B3, 9 for
-B4 and B5, summed over the ranks), max error over phases 2-3, 6 and 2d
-and times at the main path's shape; the last line is ``{"ok": true,
-"device": {...}}``.
+B4 and B5, summed over the ranks), max error over phases 2-3, 6 and 2d,
+times at the main path's shape (the fixed14 block-row at i0=0; K2 at 1%
+density), the bound computed from those inputs and what sets it, and the
+library call's time where one PyTorch call computes the same function
+(B4), else null; the last line is ``{"ok": true, "device": {...}}``.
 Without a GPU it exits with an error before printing any result.
 """
 
@@ -89,6 +100,12 @@ import numpy as np
 import torch
 
 K1_TOL = 1e-5  # same integer crosstables; only f32 log/sum order may differ
+# the card's published dense peaks (NVIDIA H100 SXM data sheet, 700 W) for
+# the roofline bounds: tensor-core int8 and bf16, f32 outside the tensor
+# cores, HBM3 bytes
+PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
+HBM_BYTES_S = 3.35e12
+EPILOGUE_OPS = 320  # f32 operations of one pair's mi_epilogue (csrc/mi_epilogue.cuh), ~
 S_BENCH, L_BENCH = 3000, 30720
 L_SAMPLE_SHARDED = 16384  # phase 9: the crosstables cross the host through gloo
 RANK_TIMEOUT = 600  # seconds for the ranks of one sharded CLI run
@@ -114,6 +131,84 @@ def cuda_time_ms(fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
+def bound(ops, kind, nbytes):
+    """(ms, "operations" or "bytes"): the least time the card could take
+    for ``ops`` operations at the ``kind`` peak that move ``nbytes``."""
+    t_ops, t_bytes = ops / PEAK_OPS[kind], nbytes / HBM_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def xtab_bound(xi_hi, xi_lo, xj, out_bytes, presence_vectors=0):
+    """The bound of K1, B3 and B4 on these operands: 2 * S * (TI*5) *
+    (TJ*5) multiply-adds per pass on the tensor cores; each operand read
+    once, the presence vectors (f32 slab vectors of both sides) and the
+    output written once."""
+    S, TI5 = xi_hi.shape
+    TJ5 = xj.shape[1]
+    passes = 1 if xi_lo is None else 2
+    esz = xj.element_size()
+    nbytes = S * (TI5 * passes + TJ5) * esz + presence_vectors * (TI5 + TJ5) * 4 + out_bytes
+    return bound(2.0 * S * TI5 * TJ5 * passes, "int8" if xj.dtype == torch.int8 else "bf16",
+                 nbytes)
+
+
+def epilogue_bound(TI, TJ, dual):
+    """B5's bound: its f32 crosstable read and its mi (and wog) written
+    once, EPILOGUE_OPS f32 operations per pair and epilogue."""
+    n = 2 if dual else 1
+    return bound(EPILOGUE_OPS * TI * TJ * n, "f32",
+                 TI * TJ * 25 * 4 + n * (2 * (TI + TJ) * 5 * 4 + TI * TJ * 4))
+
+
+def share(ms, bound_ms):
+    return f"bound {bound_ms:.3f} ms, roofline share {100 * bound_ms / ms:.1f}%"
+
+
+def build_native():
+    """The native host libraries (FASTA parser, ARACNE owner-scan,
+    couplings formatter), built from spydrpick_torch/native into build/."""
+    from spydrpick_torch import native
+
+    t0 = time.perf_counter()
+    libs = [native.build_library(name) for name in ("fasta", "aracne", "format")]
+    print(f"# native host libraries built in {time.perf_counter() - t0:.2f} s: "
+          + ", ".join(str(p.relative_to(native.BUILD_DIR.parents[1])) for p in libs))
+
+
+TC_KERNELS = ("mi_tile_mma_kernel", "crosstab_mma_kernel")  # K1 and B4
+
+
+def check_sass(lib):
+    """K1's and B4's kernels must run on the tensor cores: their SASS
+    (cuobjdump) holds IMMA (int8 instance) or HMMA (bf16) and no IDP.4A."""
+    from spydrpick_torch.ops import cuda_build
+
+    cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    found = {}
+    for block in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = block.split(None, 1)[0]
+        kernel = next((k for k in TC_KERNELS if k in name), None)
+        if kernel is None:
+            continue
+        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", block)
+        mma = sorted({o.split(".")[0] for o in ops if o.startswith(("IMMA", "HMMA", "HGMMA"))})
+        dp4a = sum(o.startswith("IDP") for o in ops)
+        bf16 = "bfloat16" in name
+        print(f"#   SASS {kernel}<{'bf16' if bf16 else 'int8'}>: {len(ops)} instructions, "
+              f"tensor-core {mma} x{sum(o.startswith(tuple(mma)) for o in ops) if mma else 0}, "
+              f"IDP.4A x{dp4a}")
+        want = "HMMA" if bf16 else "IMMA"
+        if not any(m.startswith(want) or m == "HGMMA" for m in mma) or dp4a:
+            raise AssertionError(f"{kernel} ({'bf16' if bf16 else 'int8'}): SASS has "
+                                 f"tensor-core ops {mma} and {dp4a} IDP.4A")
+        found[(kernel, bf16)] = True
+    if len(found) != 2 * len(TC_KERNELS):
+        raise AssertionError(f"SASS check found {sorted(found)}, expected both instances of "
+                             f"{TC_KERNELS}")
+
+
 def phase_env():
     from spydrpick_torch.ops import cuda_build
 
@@ -127,18 +222,24 @@ def phase_env():
                          check=True).stdout.strip().splitlines()[0]
     print(smi)
     t0 = time.perf_counter()
-    _, report = cuda_build.build()
+    lib, report = cuda_build.build()
     cuda_build.load()
     print(f"# kernels built in {time.perf_counter() - t0:.2f} s")
+    build_native()
     kernel = "?"
     for line in report.splitlines():
-        # a mangled template instance, e.g. ...mi_tile_i8_kernelILi2ELb1EE...: <2, 1>
-        m = re.search(r"entry function '\w*?((?:mi_tile|crosstab)_(?:i8|bf16)_kernel"
-                      r"|route_rows_kernel|mi_epilogue_kernel)I((?:L[ib]\d+E)+)", line)
+        # a mangled template instance: ...mi_tile_i8_kernelILi2ELb1EE... is
+        # <2, 1>, ...mi_tile_mma_kernelIaE... <int8>, ...I13__nv_bfloat16E... <bf16>
+        m = re.search(r"entry function '\w*?((?:mi_tile|crosstab)_(?:i8|bf16|mma)_kernel"
+                      r"|route_rows_kernel|mi_epilogue_kernel)(?:I(\w+?)E+|E)v", line)
         if m:
-            kernel = f"{m.group(1)}<{', '.join(re.findall(r'L[ib](\d+)E', m.group(2)))}>"
+            targs = m.group(2) or ""
+            args = re.findall(r"L[ib](\d+)E", targs + "E") or (
+                ["bf16" if "bfloat16" in targs else "int8"] if targs else [])
+            kernel = m.group(1) + (f"<{', '.join(args)}>" if args else "")
         elif "registers" in line or "spill" in line:
             print(f"#   ptxas {kernel}: {line.split('info    :')[-1].strip()}")
+    check_sass(lib)
     return smi
 
 
@@ -167,9 +268,19 @@ def k1_operands(S, TI, TJ, mode, rng, dev):
     return (hi, lo, xj.to(torch.bfloat16), pf[:TI * 5], pf, (1, 1), 1.0)
 
 
+def kmajor_args(args):
+    """``args`` with its three operands as the K-major views K1 and B4 read
+    (``ops/mi_kernels.py:k_major``, as the engine's ``row_args`` gives
+    them), copied here, outside any timed window."""
+    from spydrpick_torch.ops.mi_kernels import k_major
+
+    view = lambda x: None if x is None else k_major(x)[:, :x.shape[0]].T
+    return tuple(map(view, args[:3])) + tuple(args[3:])
+
+
 def k1_compare(label, args, n, n_plain):
     """K1 against its plain version on the same arguments: max |dmi| (raises
-    past K1_TOL) and both mean times."""
+    past K1_TOL), both mean times and K1's bound (ms, what sets it)."""
     from spydrpick_torch.ops.mi_kernels import mi_tile_single, mi_tile_single_plain
 
     got = mi_tile_single(*args)
@@ -183,7 +294,8 @@ def k1_compare(label, args, n, n_plain):
     del got, want
     ms = cuda_time_ms(lambda: mi_tile_single(*args), n)
     plain_ms = cuda_time_ms(lambda: mi_tile_single_plain(*args), n_plain)
-    return err, ms, plain_ms
+    TI, TJ = args[0].shape[1] // 5, args[2].shape[1] // 5
+    return err, ms, plain_ms, xtab_bound(args[0], args[1], args[2], TI * TJ * 4, 1)
 
 
 def phase_k1(dev, S=3072, TI=512, widths=(512, 30720)):
@@ -194,17 +306,18 @@ def phase_k1(dev, S=3072, TI=512, widths=(512, 30720)):
     for TJ in widths:
         for mode in ("fixed14", "unit", "bf16"):
             xi_hi, xi_lo, xj, ipf, jpf, mults, scale = k1_operands(S, TI, TJ, mode, rng, dev)
-            args = (xi_hi, xi_lo, xj, ipf, jpf, 0.5, BW, mults, scale)
+            args = kmajor_args((xi_hi, xi_lo, xj, ipf, jpf, 0.5, BW, mults, scale))
             n = 20 if TJ == widths[0] else 5
-            err, ms, plain_ms = k1_compare(f"{mode} S={S} TJ={TJ}", args, n,
-                                           2 if n == 5 else n)
+            err, ms, plain_ms, (bound_ms, _) = k1_compare(f"{mode} S={S} TJ={TJ}", args, n,
+                                                          2 if n == 5 else n)
             worst = max(worst, err)
             passes = len(mults)
             tops = 2.0 * S * (TI * 5) * (TJ * 5) * passes / (ms * 1e-3) / 1e12
             unit = "int8 TOP/s" if xi_hi.dtype == torch.int8 else "bf16 TFLOP/s"
             print(f"# K1 {mode:8s} S={S} TI={TI} TJ={TJ:5d}: max|dmi|={err:.3e} "
                   f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, {tops:.2f} {unit} "
-                  f"({passes} pass{'es' if passes > 1 else ''})", flush=True)
+                  f"({passes} pass{'es' if passes > 1 else ''}); {share(ms, bound_ms)}",
+                  flush=True)
             del args, xi_hi, xi_lo, xj
             torch.cuda.empty_cache()
     return worst
@@ -219,14 +332,14 @@ def wog_presence(pf):
     return pw.reshape(-1)
 
 
-def b3_compare(label, args, n, n_plain):
+def b3_compare(label, args, n, n_plain, k1_args):
     """B3 against its plain version on the same arguments (max |dmi| and
-    max |dwog| must be <= K1_TOL), its mi against K1's on the K1 part of
-    them (must be equal); returns both errors and B3's, plain's and K1's
-    mean times."""
+    max |dwog| must be <= K1_TOL), its mi against K1's on ``k1_args`` (the
+    same values, K-major): equal in the int8 modes, within K1_TOL in bf16,
+    where K1's tensor cores sum in another order than B3's scalar loop;
+    returns both errors and B3's, plain's and K1's mean times."""
     from spydrpick_torch.ops.mi_kernels import mi_tile_dual, mi_tile_dual_plain, mi_tile_single
 
-    k1_args = args[:5] + args[7:]
     mi, wog = mi_tile_dual(*args)
     want_mi, want_wog = mi_tile_dual_plain(*args)
     k1 = mi_tile_single(*k1_args)
@@ -237,8 +350,9 @@ def b3_compare(label, args, n, n_plain):
     err_wog = float((wog - want_wog).abs().max())
     if err_mi > K1_TOL or err_wog > K1_TOL:
         raise AssertionError(f"B3 {label}: max|dmi| {err_mi}, max|dwog| {err_wog} > {K1_TOL}")
-    if not torch.equal(mi, k1):
-        raise AssertionError(f"B3 {label}: mi differs from K1's by {float((mi - k1).abs().max())}")
+    d_k1 = float((mi - k1).abs().max())
+    if (not torch.equal(mi, k1)) if args[0].dtype == torch.int8 else d_k1 > K1_TOL:
+        raise AssertionError(f"B3 {label}: mi differs from K1's by {d_k1}")
     del mi, wog, want_mi, want_wog, k1
     ms = cuda_time_ms(lambda: mi_tile_dual(*args), n)
     plain_ms = cuda_time_ms(lambda: mi_tile_dual_plain(*args), n_plain)
@@ -257,28 +371,69 @@ def phase_b3(dev, S=3072, TI=512, widths=(512, 30720)):
             args = (xi_hi, xi_lo, xj, ipf, jpf, wog_presence(ipf), wog_presence(jpf), 0.5, BW,
                     mults, scale)
             n = 20 if TJ == widths[0] else 5
+            k1_args = kmajor_args(args[:5] + args[7:])
             err_mi, err_wog, ms, plain_ms, k1_ms = b3_compare(
-                f"{mode} S={S} TJ={TJ}", args, n, 2 if n == 5 else n)
+                f"{mode} S={S} TJ={TJ}", args, n, 2 if n == 5 else n, k1_args)
             worst = max(worst, err_mi, err_wog)
             print(f"# B3 {mode:8s} S={S} TI={TI} TJ={TJ:5d}: max|dmi|={err_mi:.3e} "
-                  f"max|dwog|={err_wog:.3e} mi == K1's; kernel {ms:.3f} ms, plain "
-                  f"{plain_ms:.3f} ms, K1 {k1_ms:.3f} ms", flush=True)
+                  f"max|dwog|={err_wog:.3e} mi {'==' if mode != 'bf16' else '~'} K1's; kernel "
+                  f"{ms:.3f} ms, plain {plain_ms:.3f} ms, K1 {k1_ms:.3f} ms", flush=True)
+            del k1_args
             del args, xi_hi, xi_lo, xj
             torch.cuda.empty_cache()
     return worst
 
 
-def split_compare(label, args, n, n_plain):
-    """B4 and B5 against their plain versions on B3's arguments, and
-    B4 -> xtab_to_f32 -> B5 against K1 and B3 (bit for bit in the int8
-    modes); returns (B4 error, B5 error, times in ms: B4, plain B4, B5,
-    plain B5, dual B5, K1)."""
+def b4_library(xi_hi, xi_lo, xj, mults):
+    """B4's yardstick, which the port never calls: one PyTorch call per
+    pass that computes the same crosstable.  int8 operands:
+    ``torch._int_mm`` (cuBLASLt's int8 product, Xi^T row-major against Xj
+    column-major), the int32 passes combined as B4 does; bf16: ``torch.mm``
+    of the exact f32 upcasts with TF32 off.  The layout copies and upcasts
+    are made here, outside the timed function it returns."""
+    xs = [x for x in (xi_hi, xi_lo) if x is not None]
+    m = [int(v) for v in mults[:len(xs)]] if xi_hi.dtype == torch.int8 else list(mults)
+    if xi_hi.dtype == torch.int8:
+        A = [x.T.contiguous() for x in xs]
+        B = xj.T.contiguous().T
+
+        def fn():
+            C = torch._int_mm(A[0], B)
+            if m[0] != 1:
+                C.mul_(m[0])
+            if len(A) == 2:
+                C.add_(torch._int_mm(A[1], B), alpha=m[1])
+            return C
+        return fn
+    A = [x.T.float().contiguous() for x in xs]
+    B = xj.float().contiguous()
+
+    def fn():
+        C = torch.mm(A[0], B)
+        if m[0] != 1:
+            C.mul_(m[0])
+        if len(A) == 2:
+            C.add_(torch.mm(A[1], B), alpha=m[1])
+        return C
+    return fn
+
+
+def split_compare(label, args, n, n_plain, dual_args=None):
+    """B4 and B5 against their plain versions on ``args`` (B3's argument
+    layout, operands K-major as K1 and B4 read them), and B4 ->
+    xtab_to_f32 -> B5 against K1 and B3 (B3 on ``dual_args``, the same
+    values sample-major; bit for bit in the int8 modes); B4's yardstick
+    (``b4_library``) must give its table too.  Returns (B4 error, B5
+    error, times in ms: B4, plain B4, B5, plain B5, dual B5, K1, library
+    or None, bounds: B4's and B5's (ms, what sets it))."""
     from spydrpick_torch.ops.mi_kernels import (crosstab_tile, crosstab_tile_plain,
                                                 mi_epilogue, mi_epilogue_plain, mi_tile_dual,
                                                 mi_tile_single, xtab_to_f32)
 
     xi_hi, xi_lo, xj, ipf, jpf, ipwf, jpwf, pc, bw, mults, scale = args
+    dual_args = args if dual_args is None else dual_args
     int8 = xi_hi.dtype == torch.int8
+    TI, TJ = xi_hi.shape[1] // 5, xj.shape[1] // 5
     C = crosstab_tile(xi_hi, xi_lo, xj, bw, mults)
     want = crosstab_tile_plain(xi_hi, xi_lo, xj, mults)
     torch.cuda.synchronize()
@@ -304,28 +459,47 @@ def split_compare(label, args, n, n_plain):
     k1_args = args[:5] + args[7:]
     if int8:
         k1 = mi_tile_single(*k1_args)
-        b3 = mi_tile_dual(*args)
+        b3 = mi_tile_dual(*dual_args)
         if not (torch.equal(mi, k1) and torch.equal(mi, b3[0]) and torch.equal(wog, b3[1])):
             raise AssertionError(f"B4 -> B5 {label}: differs from K1/B3")
         del k1, b3
-    del C, mi1, mi, wog
+    del mi1, mi, wog
+    lib_ms = None
+    try:
+        library = b4_library(xi_hi, xi_lo, xj, mults)
+        lib_C = library()
+        torch.cuda.synchronize()
+    except RuntimeError as e:  # a yardstick only: B4 is held to its plain version above
+        print(f"# 2d {label}: B4's library call refused these operands: {e}", flush=True)
+    else:
+        d = float((lib_C.to(torch.float64) - C.to(torch.float64)).abs().max())
+        if (not torch.equal(lib_C, C)) if int8 else d > 1e-5 * float(C.abs().max()):
+            raise AssertionError(f"B4 {label}: its library call's table differs by {d}")
+        del lib_C
+        lib_ms = cuda_time_ms(library, n)
+        del library
+    del C
+    torch.cuda.empty_cache()
     times = (cuda_time_ms(lambda: crosstab_tile(xi_hi, xi_lo, xj, bw, mults), n),
              cuda_time_ms(lambda: crosstab_tile_plain(xi_hi, xi_lo, xj, mults), n_plain),
              cuda_time_ms(lambda: mi_epilogue(Cf, ipf, jpf, pseudocount=pc, bw=bw), n),
              cuda_time_ms(lambda: mi_epilogue_plain(Cf, ipf, jpf, pseudocount=pc, bw=bw),
                           n_plain),
              cuda_time_ms(lambda: mi_epilogue(Cf, ipf, jpf, ipwf, jpwf, pc, bw), n),
-             cuda_time_ms(lambda: mi_tile_single(*k1_args), n))
+             cuda_time_ms(lambda: mi_tile_single(*k1_args), n), lib_ms,
+             (xtab_bound(xi_hi, xi_lo, xj, TI * TJ * 25 * 4), epilogue_bound(TI, TJ, False)))
     del Cf
     torch.cuda.empty_cache()
     return err_b4, err_b5, times
 
 
 def print_split(label, int8, err_b4, err_b5, times):
-    b4, b4p, b5, b5p, b5d, k1 = times
+    b4, b4p, b5, b5p, b5d, k1, lib, ((b4_bound, _), (b5_bound, _)) = times
+    lib_text = "refused" if lib is None else f"{lib:.3f}"
     print(f"# 2d {label}: B4 {'int32 equal' if int8 else f'max|dC|={err_b4:.3e}'}, "
           f"B5 max|d|={err_b5:.3e}{', B4->B5 == K1/B3' if int8 else ''}; B4 {b4:.3f} ms "
-          f"(plain {b4p:.3f}), B5 {b5:.3f} ms (plain {b5p:.3f}, dual {b5d:.3f}), "
+          f"(plain {b4p:.3f}, library {lib_text}; {share(b4, b4_bound)}), B5 {b5:.3f} ms "
+          f"(plain {b5p:.3f}, dual {b5d:.3f}; {share(b5, b5_bound)}), "
           f"B4+B5 {b4 + b5:.3f} vs K1 {k1:.3f} ms", flush=True)
 
 
@@ -340,7 +514,8 @@ def phase_split(dev, S=3072, TI=512, widths=(512, 30720)):
             args = (xi_hi, xi_lo, xj, ipf, jpf, wog_presence(ipf), wog_presence(jpf), 0.5, BW,
                     mults, scale)
             n = 20 if TJ == widths[0] else 5
-            e4, e5, times = split_compare(f"{mode} S={S} TJ={TJ}", args, n, 2 if n == 5 else n)
+            e4, e5, times = split_compare(f"{mode} S={S} TJ={TJ}", kmajor_args(args), n,
+                                          2 if n == 5 else n, args)
             if xi_hi.dtype != torch.int8:
                 e4 = 0.0  # bf16 B4 sums in another order: held to its own bound above
             err_b4, err_b5 = max(err_b4, e4), max(err_b5, e5)
@@ -360,7 +535,7 @@ def phase_k1_main(dev, fasta, wfile):
 
     al = load_and_preprocess(PipelineOptions(alignmentfile=fasta, sample_weights=wfile))
     weights = al.weights
-    worst, main_ms, main_plain_ms = 0.0, None, None
+    worst, main = 0.0, {}
     b3_worst, b3 = 0.0, {}
     split_err, split_ms = [0.0, 0.0], {}
     for mode, mxu_int8, unit in (("fixed14", "auto", False), ("unit", "auto", True),
@@ -372,41 +547,54 @@ def phase_k1_main(dev, fasta, wfile):
         for i0 in (0, (eng.Lp // 2) // eng.tile * eng.tile):
             args = eng.row_args(i0)
             xi, xj = args[0], args[2]
-            err, ms, plain_ms = k1_compare(f"main-path {mode} i0={i0}", args, 5, 2)
+            err, ms, plain_ms, (bound_ms, bound_by) = k1_compare(
+                f"main-path {mode} i0={i0}", args, 5, 2)
             worst = max(worst, err)
             print(f"# K1 main path {mode:7s} S={eng.S} i0={i0:5d} TJ={xj.shape[1] // 5:5d} "
-                  f"(xi {xi.dtype} row stride {xi.stride(0)}, xj row stride {xj.stride(0)}): "
-                  f"max|dmi|={err:.3e} kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
+                  f"(xi {xi.dtype} K-major, row stride {xi.stride(1)}, xj row stride "
+                  f"{xj.stride(1)}): max|dmi|={err:.3e} kernel {ms:.3f} ms, plain "
+                  f"{plain_ms:.3f} ms; {share(ms, bound_ms)}", flush=True)
             if mode == "fixed14" and i0 == 0:
-                main_ms, main_plain_ms = ms, plain_ms
-            del args, xi, xj
+                main = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": None}
+            del xi, xj
+            dual = eng.row_dual_args(i0)
             err_mi, err_wog, ms, plain_ms, k1_ms = b3_compare(
-                f"main-path {mode} i0={i0}", eng.row_dual_args(i0), 5, 2)
+                f"main-path {mode} i0={i0}", dual, 5, 2, args)
             b3_worst = max(b3_worst, err_mi, err_wog)
+            TI, TJ = dual[0].shape[1] // 5, dual[2].shape[1] // 5
+            b3_bound, b3_by = xtab_bound(dual[0], dual[1], dual[2], 2 * TI * TJ * 4, 2)
             print(f"# B3 main path {mode:7s} S={eng.S} i0={i0:5d}: max|dmi|={err_mi:.3e} "
-                  f"max|dwog|={err_wog:.3e} mi == K1's; kernel {ms:.3f} ms, plain "
-                  f"{plain_ms:.3f} ms, K1 {k1_ms:.3f} ms", flush=True)
+                  f"max|dwog|={err_wog:.3e} mi {'==' if mode != 'off' else '~'} K1's; kernel "
+                  f"{ms:.3f} ms, plain {plain_ms:.3f} ms, K1 {k1_ms:.3f} ms; "
+                  f"{share(ms, b3_bound)}", flush=True)
             if mode == "fixed14" and i0 == 0:
-                b3 = {"ms": ms, "plain_ms": plain_ms}
-            e4, e5, times = split_compare(f"main-path {mode} i0={i0}", eng.row_dual_args(i0), 5, 2)
+                b3 = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b3_bound, "bound_by": b3_by,
+                      "library_ms": None}
+            e4, e5, times = split_compare(f"main-path {mode} i0={i0}",
+                                          args[:5] + dual[5:7] + args[5:], 5, 2, dual)
+            del args, dual
             int8 = mode != "off"
             split_err[0] = max(split_err[0], e4 if int8 else 0.0)
             split_err[1] = max(split_err[1], e5)
             print_split(f"main path {mode:7s} S={eng.S} i0={i0:5d}", int8, e4, e5, times)
             if mode == "fixed14" and i0 == 0:
-                split_ms.update(b4={"ms": times[0], "plain_ms": times[1]},
-                                b5={"ms": times[2], "plain_ms": times[3]})
+                (b4_bound, b4_by), (b5_bound, b5_by) = times[7]
+                split_ms.update(b4={"ms": times[0], "plain_ms": times[1], "bound_ms": b4_bound,
+                                    "bound_by": b4_by, "library_ms": times[6]},
+                                b5={"ms": times[2], "plain_ms": times[3], "bound_ms": b5_bound,
+                                    "bound_by": b5_by, "library_ms": None})
         del eng
         torch.cuda.empty_cache()
     al.weights = weights
-    return worst, main_ms, main_plain_ms, b3_worst, b3, split_err, split_ms
+    return worst, main, b3_worst, b3, split_err, split_ms
 
 
 def phase_k2(dev, R=512, W=30720):
     from spydrpick_torch.ops.compact import route_rows, route_rows_plain
 
     rng = np.random.default_rng(2)
-    main_ms = main_plain_ms = None
+    main = {}
     worst = 0.0
     for density in (0.0, 0.01, 0.3, 1.0):
         for with_wog in (False, True):
@@ -429,11 +617,17 @@ def phase_k2(dev, R=512, W=30720):
                     worst = max(worst, float(d))
             ms = cuda_time_ms(lambda: route_rows(mask, mi, wog), 10)
             plain_ms = cuda_time_ms(lambda: route_rows_plain(mask, mi, wog), 3)
+            # mask and payloads read once; counts and the kept prefixes
+            # (mi, j, wog) written once; one scan step per mask element
+            kept, payload = int(want[3].sum()), 2 if wog is None else 3
+            bound_ms, bound_by = bound(R * W, "f32", R * W * (1 + 4 * (payload - 1)) + R * 4
+                                       + kept * 4 * payload)
             print(f"# K2 density={density:<4} wog={with_wog!s:5}: exact; kernel {ms:.3f} ms, "
-                  f"plain {plain_ms:.3f} ms", flush=True)
+                  f"plain {plain_ms:.3f} ms; {share(ms, bound_ms)}", flush=True)
             if density == 0.01 and not with_wog:
-                main_ms, main_plain_ms = ms, plain_ms
-    return worst, main_ms, main_plain_ms
+                main = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": None}
+    return worst, main
 
 
 def phase_parity(dev, td, S=256, L=2048):
@@ -823,6 +1017,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device visible to PyTorch", file=sys.stderr)
         return 2
     dev = torch.device("cuda:0")
+    torch.backends.cuda.matmul.allow_tf32 = False  # the f32 yardsticks and plain versions
     from spydrpick_torch.stage_profile import bench_alignment, write_inputs
 
     phase_env()
@@ -833,9 +1028,8 @@ def main() -> int:
         codes, w = bench_alignment(S_BENCH, L_BENCH, seed=0)
         fasta, wfile = write_inputs(td, "bench", codes, w)
         del codes
-        (k1_main_err, k1_ms, k1_plain_ms, b3_main_err, b3, split_err,
-         split_ms) = phase_k1_main(dev, fasta, wfile)
-        k2_err, k2_ms, k2_plain_ms = phase_k2(dev)
+        k1_main_err, k1, b3_main_err, b3, split_err, split_ms = phase_k1_main(dev, fasta, wfile)
+        k2_err, k2 = phase_k2(dev)
         phase_parity(dev, td)
         launches, main_out, main_sweep_s = phase_main(dev, td, fasta, wfile)
         dual_launches, dual_err = phase_dual_sweep(dev, fasta, wfile)
@@ -845,19 +1039,17 @@ def main() -> int:
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     kernels = [
-        {"name": "mi_tile_single", "route": "cuda", "source": "spydrpick_torch/csrc/mi_tile.cu",
+        {"name": "mi_tile_single", "route": "cuda", "source": "spydrpick_torch/csrc/xtab_mma.cu",
          "replaces": "spydrpick_tpu/ops/mi_pallas.py:279",
-         "launches": launches["mi_tile_single"], "max_abs_err": max(k1_err, k1_main_err),
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
+         "launches": launches["mi_tile_single"], "max_abs_err": max(k1_err, k1_main_err), **k1},
         {"name": "route_rows", "route": "cuda", "source": "spydrpick_torch/csrc/route_rows.cu",
          "replaces": "spydrpick_tpu/ops/compact_route.py:111",
-         "launches": launches["route_rows"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
+         "launches": launches["route_rows"], "max_abs_err": k2_err, **k2},
         {"name": "mi_tile_dual", "route": "cuda", "source": "spydrpick_torch/csrc/mi_tile.cu",
          "replaces": "spydrpick_tpu/ops/mi_pallas.py:523",
          "launches": dual_launches["mi_tile_dual"],
          "max_abs_err": max(b3_err, b3_main_err, dual_err), **b3},
-        {"name": "crosstab_tile", "route": "cuda", "source": "spydrpick_torch/csrc/xtab.cu",
+        {"name": "crosstab_tile", "route": "cuda", "source": "spydrpick_torch/csrc/xtab_mma.cu",
          "replaces": "spydrpick_tpu/ops/mi_pallas.py:404",
          "launches": sum(x["crosstab_tile"] for x in split_launches),
          "max_abs_err": max(b4_err, split_err[0]), **split_ms["b4"]},

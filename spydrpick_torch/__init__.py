@@ -6,13 +6,13 @@ and output files: FASTA -> filter -> sample weights -> tournament
 threshold -> all-pairs MI sweep -> lazy wo-gaps resolve -> Tukey fences ->
 sort -> ARACNE -> write.
 
-Host code that never touched jax is reused from ``spydrpick_tpu`` (the
-alignment model, filter, FASTA/loci IO, writers, native ARACNE and
-formatter kernels).  Plain XLA code of the reference becomes plain torch
-here; the reference's Pallas kernels on the main path become hand-written
-CUDA kernels (``csrc/``): the MI tile (``ops/mi_kernels.py``) and the
-per-row edge compaction (``ops/compact.py``).  This package never imports
-jax.
+The reference's host code is copied, not called: the alignment model,
+filter, FASTA/loci IO, writers and the native FASTA, ARACNE and formatter
+kernels live in ``core``, ``io``, ``utils`` and ``native`` here.  Plain
+XLA code of the reference becomes plain torch; the reference's Pallas
+kernels become hand-written CUDA kernels (``csrc/``, wrapped in
+``ops/mi_kernels.py`` and ``ops/compact.py``).  This package imports
+neither jax nor anything of ``spydrpick_tpu``.
 """
 
 from spydrpick_torch.version import __version__

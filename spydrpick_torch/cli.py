@@ -19,6 +19,8 @@ defaults and meanings, except:
     ``--sample-shards k`` shards the samples k ways, which k must divide
     the process count for; every process ends with the same results and
     only process 0 writes files;
+  * the run needs a GPU unless ``SPYDRPICK_TORCH_DEVICE=cpu`` asks for the
+    CPU (``device.py``): without either it exits 1 before writing anything;
   * what this engine does not run yet is refused with a "not yet ported"
     error and exit code 1 (``_not_yet_ported``): ``--row-window`` > 1,
     ``--onehot-storage codes`` (``--onehot-storage auto`` resolves to
@@ -31,6 +33,7 @@ import argparse
 import os
 import sys
 
+from spydrpick_torch.device import default_device
 from spydrpick_torch.engine.aracne import DEFAULT_EDGE_THRESHOLD
 from spydrpick_torch.parallel.distributed import initialize_distributed, shutdown
 from spydrpick_torch.pipeline import PipelineOptions, run_pipeline
@@ -200,8 +203,9 @@ def main(argv=None) -> int:
               f"the {world} processes of the run", file=sys.stderr)
         return 1
     try:
+        default_device()  # no GPU and no SPYDRPICK_TORCH_DEVICE=cpu: refuse before any output
         initialize_distributed(args.coordinator_address, args.num_processes, args.process_id)
-    except ValueError as e:
+    except (RuntimeError, ValueError) as e:
         print(f"spydrpick-torch ERROR: {e}", file=sys.stderr)
         return 1
     try:

@@ -1,3 +1,3 @@
-"""Device-side data preparation (sample weights).  The alignment model,
-alphabet, filter and distance helpers are reused from
-``spydrpick_tpu.core``, which imports without jax."""
+"""The alignment model, alphabet, position filter and genome distance
+(copies of ``spydrpick_tpu.core``'s host modules) and the device-side
+sample weights."""

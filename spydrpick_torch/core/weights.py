@@ -19,8 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from spydrpick_tpu.core.alignment import Alignment
-from spydrpick_tpu.core.alphabet import N_STATES
+from spydrpick_torch.core.alignment import Alignment
+from spydrpick_torch.core.alphabet import N_STATES
 from spydrpick_torch.device import default_device
 
 DEFAULT_REWEIGHTING_THRESHOLD = 0.9
@@ -90,7 +90,7 @@ def cache_sample_weights(alignment: Alignment, weights_file: str | None = None,
     (--sample-weights) > disabled (--no-sample-reweighting: all ones) >
     computed."""
     if weights_file is not None:
-        from spydrpick_tpu.io.loci import parse_value_list
+        from spydrpick_torch.io.loci import parse_value_list
 
         w = parse_value_list(weights_file)
         if len(w) != alignment.n_samples:

@@ -1,33 +1,30 @@
-// Kernel K1: with-gaps MI of every column pair of a (TI, TJ) tile, and
-// kernel B3, its dual: (mi, wo-gaps mi) of every pair from one crosstable.
+// Kernel B3: (mi, wo-gaps mi) of every column pair of a (TI, TJ) tile
+// from one crosstable.
 //
-// K1 replaces spydrpick_tpu/ops/mi_pallas.py:mi_tile_pallas_single (its
-// serial schedule; the deferred schedule is a TPU MXU/VPU overlap with
-// bit-identical results), B3 replaces mi_pallas.py:mi_tile_pallas (body
-// _kernel).  Both are one template (DUAL): B3 runs the same crosstable
-// loop and then the same epilogue a second time, on the same registers,
-// with the presence whose gap bit is cleared, so its mi equals K1's bit
-// for bit.  Same operands: slab-layout one-hots (S, TI*5)
-// and (S, TJ*5), either int8 (1 pass, or 2 fixed-point digit passes
-// recombined in int32 by pass_mults) or bf16 (1 or 2 hi/lo passes
-// accumulated in f32), slab presence vectors, and the fused entropy
-// epilogue of _mi_from_block (mi_pallas.py:88-121) op for op.
+// B3 replaces spydrpick_tpu/ops/mi_pallas.py:mi_tile_pallas (body
+// _kernel).  Operands: slab-layout one-hots (S, TI*5) and (S, TJ*5), either
+// int8 (1 pass, or 2 fixed-point digit passes recombined in int32 by
+// pass_mults) or bf16 (1 or 2 hi/lo passes accumulated in f32), slab
+// presence vectors, and the fused entropy epilogue of _mi_from_block
+// (mi_pallas.py:88-121) op for op, run twice on the same registers: with
+// the presence (mi) and with the presence whose gap bit is cleared (wog).
+// DUAL is true in every instance; the parameter stays so that B3's body is
+// the one measured before K1 moved to the tensor cores (xtab_mma.cu).  In
+// the int8 modes its mi equals K1's bit for bit (the same integer counts,
+// conversion and epilogue).
 //
 // What bounds it on the H100: the crosstable is 25 * n_passes dot
 // products over S samples per column pair — integer multiply-adds.
-// This first design keeps one pair's whole 5x5 (x n_passes) crosstable
+// This design keeps one pair's whole 5x5 (x n_passes) crosstable
 // in one thread's registers and runs __dp4a (4 int8 products per
 // instruction) over samples staged in shared memory, so it is bound by
 // the SM's integer pipe and by shared-memory loads (15 loads per 50
 // dp4a at 2 passes), not by the tensor cores.  Blocks of 16x16 pairs
 // are ordered i-fastest so the j operand of a launch streams from
-// device memory about once while the i operand stays in L2.  The
-// tensor-core (mma/wgmma) design is later work (ROADMAP B1).  B3's second
-// epilogue adds ~1k instructions per pair to K1's ~25*S*NP/4 dp4a, and
-// only the 25-float crosstable stays live across the first epilogue, so
-// nothing spills; but it raises the registers per thread (int8 2 passes:
-// 107 against K1's 79), so 2 blocks fit on an SM instead of 3, and on an
-// H100 B3 takes ~16% longer than K1 at the main path's shape.
+// device memory about once while the i operand stays in L2.  Moving it
+// onto K1's tensor-core main loop is later work (ROADMAP B3).  The second
+// epilogue raises the registers per thread (int8 2 passes: 107), so 2
+// blocks fit on an SM.
 
 #include "mi_epilogue.cuh"
 
@@ -260,21 +257,11 @@ int launch(int dtype, const void* xi_hi, const void* xi_lo, const void* xj, long
 
 }  // namespace
 
-// dtype: 0 = int8 operands (int32 accumulation), 1 = bf16 operands (f32).
-// Pointers are device pointers; ld* are row strides in elements.  Returns
-// the launch's cudaGetLastError() (0 on success).
-extern "C" int spk_mi_tile_single(int dtype, const void* xi_hi, const void* xi_lo, const void* xj,
-                                  long long ldi, long long ldj, const void* ipf, const void* jpf,
-                                  void* out, long long ldo, int S, int TI, int TJ, int bw_i,
-                                  int bw_j, int n_passes, double m0, double m1, float acc_scale,
-                                  float pc, void* stream) {
-    return launch<false>(dtype, xi_hi, xi_lo, xj, ldi, ldj, ipf, jpf, nullptr, nullptr, out,
-                         nullptr, ldo, S, TI, TJ, bw_i, bw_j, n_passes, m0, m1, acc_scale, pc,
-                         stream);
-}
-
-// B3: as spk_mi_tile_single, plus the wo-gaps presence ipwf/jpwf and the
-// wog output, which shares out's row stride.
+// B3.  dtype: 0 = int8 operands (int32 accumulation), 1 = bf16 operands
+// (f32).  Pointers are device pointers; ld* are row strides in elements
+// (sample-major operands); ipwf/jpwf are the wo-gaps presence and the wog
+// output shares out's row stride.  Returns the launch's
+// cudaGetLastError() (0 on success).
 extern "C" int spk_mi_tile_dual(int dtype, const void* xi_hi, const void* xi_lo, const void* xj,
                                 long long ldi, long long ldj, const void* ipf, const void* jpf,
                                 const void* ipwf, const void* jpwf, void* out, void* out_wog,

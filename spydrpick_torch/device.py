@@ -1,11 +1,16 @@
 """The one place the port picks its device.
 
-A process of a sharded run (``torch.distributed`` initialised) drives
-``cuda:(local rank % device count)``; any other process ``cuda:0`` when
-PyTorch sees a GPU, else ``cpu``.  Every engine, weights matmul and pairs
-path takes this device (or an explicit one from its caller) and nothing
-moves work from a present GPU to the CPU.  On the CPU the kernel wrappers
-run their plain PyTorch versions (ops/mi_kernels.py, ops/compact.py).
+The port runs on the GPU unless its caller asks for the CPU: a library
+caller passes ``device="cpu"`` to the function it calls, and a CLI run or
+a rank of a sharded run sets ``SPYDRPICK_TORCH_DEVICE=cpu`` in its
+environment (the counterpart of the JAX package's ``JAX_PLATFORMS=cpu``).
+Without either, ``default_device`` raises when PyTorch sees no GPU, so a
+machine whose CUDA failed to initialise never runs a whole analysis on
+the host.  A process of a sharded run (``torch.distributed`` initialised)
+drives ``cuda:(local rank % device count)``, any other process
+``cuda:0``.  On the CPU the kernel wrappers run their plain PyTorch
+versions (ops/mi_kernels.py, ops/compact.py); on a CUDA tensor they launch
+their kernels.
 """
 
 from __future__ import annotations
@@ -14,6 +19,8 @@ import os
 
 import torch
 import torch.distributed as dist
+
+DEVICE_ENV = "SPYDRPICK_TORCH_DEVICE"
 
 
 def local_rank() -> int:
@@ -25,9 +32,28 @@ def local_rank() -> int:
     return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
 
 
+def cpu_requested() -> bool:
+    """Whether the environment asks for the CPU (``SPYDRPICK_TORCH_DEVICE``
+    is ``cpu``; unset or empty, the GPU)."""
+    value = os.environ.get(DEVICE_ENV, "").strip().lower()
+    if value not in ("", "cpu"):
+        raise ValueError(f"{DEVICE_ENV}={value!r}: expected 'cpu' or unset")
+    return value == "cpu"
+
+
+def gpu_count() -> int:
+    """GPUs this process may drive: 0 when the CPU was asked for."""
+    return 0 if cpu_requested() else torch.cuda.device_count()
+
+
 def default_device() -> torch.device:
-    if not torch.cuda.is_available():
+    if cpu_requested():
         return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is visible to PyTorch, and spydrpick_torch runs on the GPU "
+            f"unless asked for the CPU: set {DEVICE_ENV}=cpu for a CPU run (library "
+            "callers may pass device='cpu')")
     if dist.is_available() and dist.is_initialized():
         return torch.device(f"cuda:{local_rank() % torch.cuda.device_count()}")
     return torch.device("cuda:0")

@@ -1,7 +1,7 @@
 """ARACNE indirect-edge pruning: the ``run_aracne`` entry point and its
 NumPy fallback, copied from spydrpick_tpu/engine/aracne.py (which cannot
-be imported without jax).  The fast path is the reference package's
-native owner-scan kernel, ``spydrpick_tpu.native.aracne_native``.
+be imported without jax).  The fast path is the native owner-scan kernel,
+the port's copy ``spydrpick_torch.native.aracne_native``.
 
 Closed form of the DPI rule (ARACNE.hpp:311-313): edge (a, b, w) is
 indirect iff ``max_c min(w_ac, w_bc) >= w + max(threshold, 0)`` over the
@@ -111,7 +111,7 @@ def run_aracne(ipos: np.ndarray, jpos: np.ndarray, mi: np.ndarray,
     t = timings if timings is not None else {}
     if use_native:
         try:
-            from spydrpick_tpu.native import aracne_native
+            from spydrpick_torch.native import aracne_native
 
             t0 = time.perf_counter()
             ind = aracne_native.mark_indirect(ipos, jpos, mi, threshold)

@@ -46,13 +46,14 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from spydrpick_tpu.core.alignment import Alignment
-from spydrpick_tpu.core.alphabet import N_STATES
+from spydrpick_torch.core.alignment import Alignment
+from spydrpick_torch.core.alphabet import N_STATES
 from spydrpick_torch.device import default_device, synchronize
 from spydrpick_torch.engine import checkpoint as ckpt_mod
 from spydrpick_torch.ops.compact import route_rows
 from spydrpick_torch.ops.mi import mi_from_crosstabs
-from spydrpick_torch.ops.mi_kernels import BW, mi_tile_dual, mi_tile_single, split_bf16, to_slab
+from spydrpick_torch.ops.mi_kernels import (BW, k_major, mi_tile_dual, mi_tile_single,
+                                            split_bf16, to_slab)
 
 # elements of one (S, 25, P) pairs-crosstable temporary (1 GiB of f32)
 _PAIRS_BUDGET = 1 << 28
@@ -339,42 +340,54 @@ class MIEngine:
         # its j-range's presence vectors are contiguous slices
         self._pslab = to_slab(self.data.presence.reshape(-1), BW).contiguous()
         self._pwslab = to_slab(self.data.presence_wog.reshape(-1), BW).contiguous()
+        # K1 and B4 read their operands K-major (csrc/xtab_mma.cuh): a copy
+        # of the one-hot with each slab column's samples contiguous and
+        # zero-padded to 16 bytes, so that a block-row's operands are views
+        # of it; B3 and the pairs paths keep the sample-major one-hot
+        self._onehot_k = k_major(self.data.onehot)
+        self._rows = self.data.onehot.shape[0]
+        Sp = self._onehot_k.shape[1]
+        self._weights_k = torch.zeros(Sp, dtype=torch.float32, device=self.device)
+        self._weights_k[:self._rows] = self.data.weights
         if st.int8_mode == "fixed14":
             # w_q = clip(round(f32(w) * f32(q)), 0, 16383), half to even,
             # split into base-128 digits (solver.py:499-507)
             w_q = torch.clamp(torch.round(
-                self.data.weights * torch.tensor(st.int8_scale, dtype=torch.float32,
-                                                 device=self.device)),
+                self._weights_k * torch.tensor(st.int8_scale, dtype=torch.float32,
+                                               device=self.device)),
                 0, 16383).to(torch.int32)
-            self._w_digits = ((w_q // 128)[:, None], (w_q % 128)[:, None])
+            self._w_digits = (w_q // 128, w_q % 128)  # (Sp,): zero past the samples
         self._pairs_chunk = max(128, min(65536, _PAIRS_BUDGET // (st.S * 25) // 128 * 128))
 
     # ------------------------------------------------------------------ #
     def row_operands(self, i0: int):
-        """(xi_hi, xi_lo or None, pass_mults, acc_scale): the i-side K1
-        operands of block-row i0 (solver.py:482-522)."""
-        st, d = self.statics, self.data
-        xi = d.onehot[:, i0 * N_STATES:(i0 + st.tile) * N_STATES]
+        """(xi_hi, xi_lo or None, pass_mults, acc_scale): the i-side
+        operands of block-row i0 (solver.py:482-522), each an (S, tile*5)
+        view of a K-major tensor, as K1 and B4 read them."""
+        st = self.statics
+        xi = self._onehot_k[i0 * N_STATES:(i0 + st.tile) * N_STATES]  # (tile*5, Sp)
+        view = lambda x: x[:, :self._rows].T
         if st.int8_mode == "unit":
-            return xi, None, (1,), 1.0
+            return view(xi), None, (1,), 1.0
         if st.int8_mode == "fixed14":
             xi32 = xi.to(torch.int32)
-            hi, lo = ((xi32 * dig).to(torch.int8) for dig in self._w_digits)
+            hi, lo = (view((xi32 * dig).to(torch.int8)) for dig in self._w_digits)
             return hi, lo, (128, 1), 1.0 / st.int8_scale
-        xi_w = xi.to(torch.float32) * d.weights[:, None]
+        xi_w = xi.to(torch.float32) * self._weights_k
         if st.unit_weights:
-            return xi_w.to(torch.bfloat16), None, (1,), 1.0
+            return view(xi_w.to(torch.bfloat16)), None, (1,), 1.0
         hi, lo = split_bf16(xi_w)
-        return hi, lo, (1, 1), 1.0
+        return view(hi), view(lo), (1, 1), 1.0
 
     def row_args(self, i0: int) -> tuple:
-        """The K1 arguments of block-row i0: its i-side operands against
-        the one-hot's columns from the diagonal tile on (a strided view,
-        no copy), with the matching slab presence."""
+        """The K1 (and B4) arguments of block-row i0: its i-side operands
+        against the one-hot's columns from the diagonal tile on, all as
+        views of K-major tensors (no copy of the j side), with the matching
+        slab presence."""
         st = self.statics
         c0, c1 = i0 * N_STATES, (i0 + st.tile) * N_STATES
         xi_hi, xi_lo, mults, scale = self.row_operands(i0)
-        return (xi_hi, xi_lo, self.data.onehot[:, c0:], self._pslab[c0:c1],
+        return (xi_hi, xi_lo, self._onehot_k[c0:, :self._rows].T, self._pslab[c0:c1],
                 self._pslab[c0:], st.pseudocount, BW, mults, scale)
 
     def row_mi(self, i0: int) -> torch.Tensor:
@@ -384,12 +397,17 @@ class MIEngine:
         return mi_tile_single(*self.row_args(i0))
 
     def row_dual_args(self, i0: int) -> tuple:
-        """The B3 arguments of block-row i0: ``row_args`` plus the
-        matching slab presence with the gap bit cleared."""
-        xi_hi, xi_lo, xj, ipf, jpf, pc, bw, mults, scale = self.row_args(i0)
-        c0, c1 = i0 * N_STATES, (i0 + self.statics.tile) * N_STATES
-        return (xi_hi, xi_lo, xj, ipf, jpf, self._pwslab[c0:c1], self._pwslab[c0:],
-                pc, bw, mults, scale)
+        """The B3 arguments of block-row i0: ``row_args``' operands
+        sample-major (the i side copied, the j side a strided view of the
+        one-hot), plus the matching slab presence with the gap bit
+        cleared."""
+        st = self.statics
+        c0, c1 = i0 * N_STATES, (i0 + st.tile) * N_STATES
+        xi_hi, xi_lo, mults, scale = self.row_operands(i0)
+        xi_lo = None if xi_lo is None else xi_lo.contiguous()
+        return (xi_hi.contiguous(), xi_lo, self.data.onehot[:, c0:], self._pslab[c0:c1],
+                self._pslab[c0:], self._pwslab[c0:c1], self._pwslab[c0:], st.pseudocount, BW,
+                mults, scale)
 
     def row_mi_dual(self, i0: int) -> tuple[torch.Tensor, torch.Tensor]:
         """(mi, effective wog), each (tile, Lp - i0) f32, of block-row i0:

@@ -13,11 +13,20 @@ presence vectors (wog).  ``crosstab_tile`` (B4) returns the crosstable
 itself, unscaled (int32 for int8 operands), so that sample shards can sum
 it exactly; ``xtab_to_f32`` converts the sum as K1 does and
 ``mi_epilogue`` (B5) runs K1's epilogue on it.  On CUDA tensors each
-launches its hand-written kernel in ``csrc/mi_tile.cu`` or
-``csrc/xtab.cu`` (design notes there); on CPU tensors it runs its
-``*_plain`` twin, the same function in plain PyTorch.  One launch may
-cover a whole block-row (TJ = every column from the diagonal tile on): it
-is the same function on a wider tile.
+launches its hand-written kernel (K1 and B4 in ``csrc/xtab_mma.cu`` on the
+tensor cores, B3 in ``csrc/mi_tile.cu``, B5 in ``csrc/xtab.cu``; design
+notes there); on CPU tensors it runs its ``*_plain`` twin, the same
+function in plain PyTorch.  One launch may cover a whole block-row (TJ =
+every column from the diagonal tile on): it is the same function on a
+wider tile.
+
+Operand layout.  Every operand is an (S, T*5) tensor.  B3 takes it
+sample-major (unit column stride, any row stride).  K1 and B4 take either
+that or a K-major view, ``k_major(x)[:, :S].T`` (unit row stride: each slab
+column's samples contiguous), which is what their tensor-core loop reads;
+the engine keeps such a copy of its one-hot, and a sample-major operand
+is copied into one per call.  The plain versions give the same values
+for either layout.
 
 Operand modes (the engine's int8-mode rule picks one,
 engine/solver.py:build_device_data):
@@ -54,6 +63,33 @@ def split_bf16(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     hi = x.to(torch.bfloat16)
     lo = (x - hi.to(torch.float32)).to(torch.bfloat16)
     return hi, lo
+
+
+def k_major(x: torch.Tensor) -> torch.Tensor:
+    """The (n, Sp) K-major copy of an (S, n) operand: row k holds slab
+    column k's S samples, then zeros up to Sp, S rounded up to 16 bytes, so
+    every row starts 16-byte aligned.  ``k_major(x)[:, :S].T`` is the
+    operand again, as a view that K1 and B4 read without a copy."""
+    S, n = x.shape
+    step = max(1, 16 // x.element_size())
+    out = torch.zeros((n, -(-S // step) * step), dtype=x.dtype, device=x.device)
+    out[:, :S] = x.T
+    return out
+
+
+def _kernel_operand(x: torch.Tensor, ld: int | None = None) -> torch.Tensor:
+    """x as K1 and B4 read it: x itself when it is a K-major view whose row
+    stride (``ld`` when given) is a whole number of 16-byte units from an
+    aligned start, else a K-major copy."""
+    row_bytes = x.stride(1) * x.element_size()
+    if (x.stride(0) == 1 and row_bytes % 16 == 0 and x.data_ptr() % 16 == 0
+            and (ld is None or x.stride(1) == ld)):
+        return x
+    if ld is None:
+        return k_major(x)[:, :x.shape[0]].T
+    out = torch.zeros((x.shape[1], ld), dtype=x.dtype, device=x.device)
+    out[:, :x.shape[0]] = x.T
+    return out[:, :x.shape[0]].T
 
 
 def _ln_pos(x: torch.Tensor) -> torch.Tensor:
@@ -109,8 +145,10 @@ def crosstab_tile_plain(xi_hi, xi_lo, xj, pass_mults: tuple = (1, 1)) -> torch.T
     kernels' operands, unscaled.  int8 operands: the exact int32 counts
     sum_p mult_p * (Xi_p^T Xj), taken in float64 (exact: counts < 2^53;
     integer matmul does not exist on CUDA).  bf16 operands: f32 products
-    of the exact f32 upcasts, summed over the passes."""
+    of the exact f32 upcasts, summed over the passes.  Operands of either
+    layout are made contiguous first, so the products see one layout."""
     xs, mults = _passes(xi_hi, xi_lo, pass_mults)
+    xs, xj = tuple(x.contiguous() for x in xs), xj.contiguous()
     f32 = torch.float32
     if xi_hi.dtype == torch.int8:
         xjd = xj.to(torch.float64)
@@ -179,9 +217,10 @@ def mi_tile_dual_plain(xi_hi, xi_lo, xj, ipf, jpf, ipwf, jpwf, pseudocount: floa
     return mi_epilogue_plain(C, ipf, jpf, ipwf, jpwf, pseudocount, bw)
 
 
-def _check_operands(name, xi_hi, xi_lo, xj, presence, bw, pass_mults):
+def _check_operands(name, xi_hi, xi_lo, xj, presence, bw, pass_mults, k_major_ok=False):
     """Validate the kernels' operands; returns (passes, mults, S, TI, TJ).
-    ``presence``: the (i, j) presence vector pairs the kernel reads."""
+    ``presence``: the (i, j) presence vector pairs the kernel reads;
+    ``k_major_ok``: K-major views are accepted too (K1, B4)."""
     xs, mults = _passes(xi_hi, xi_lo, pass_mults)
     S, TI5 = xi_hi.shape
     TJ5 = xj.shape[1]
@@ -191,10 +230,11 @@ def _check_operands(name, xi_hi, xi_lo, xj, presence, bw, pass_mults):
     for x in xs + (xj,):
         if x.dtype != xi_hi.dtype or x.device != xj.device or x.dim() != 2:
             raise ValueError(f"{name}: operands differ in dtype, device or rank")
-        if x.shape[0] != S or x.stride(1) != 1:
-            raise ValueError(f"{name}: operands need S rows and unit column stride")
+        if x.shape[0] != S or not (x.stride(1) == 1 or (k_major_ok and x.stride(0) == 1)):
+            raise ValueError(f"{name}: operands need S rows and unit column stride"
+                             + (" or unit row stride" if k_major_ok else ""))
     if xi_lo is not None and (xi_lo.shape != xi_hi.shape
-                              or xi_lo.stride(0) != xi_hi.stride(0)):
+                              or (not k_major_ok and xi_lo.stride(0) != xi_hi.stride(0))):
         raise ValueError(f"{name}: xi_hi and xi_lo need one shape and row stride")
     if TI5 != TI * N_STATES or TJ5 != TJ * N_STATES or TI % bw or TJ % bw:
         raise ValueError(f"{name}: tile ({TI}, {TJ}) not in {bw}-column slab blocks")
@@ -205,7 +245,20 @@ def _check_operands(name, xi_hi, xi_lo, xj, presence, bw, pass_mults):
                 raise ValueError(f"{name}: presence must be contiguous f32 (T*5,)")
     if xi_hi.dtype == torch.int8 and any(m != int(m) for m in mults):
         raise ValueError(f"{name}: int8 passes need integer multipliers {mults}")
+    if k_major_ok and (bw % 32 or (len(xs) == 2 and (
+            mults[1] == 0 or (xi_hi.dtype == torch.int8 and int(mults[0]) % int(mults[1]))))):
+        # the tensor-core loop: 32-column tiles, acc = (m0 / m1) * P0 + P1
+        raise ValueError(f"{name}: needs bw % 32 == 0 and, for two int8 passes, "
+                         f"m1 dividing m0 (bw {bw}, multipliers {mults})")
     return xs, mults, S, TI, TJ
+
+
+def _kernel_operands(xs, xj):
+    """(xi_hi, xi_lo, xj) as K1 and B4 read them (``_kernel_operand``):
+    both i passes with one row stride."""
+    hi = _kernel_operand(xs[0])
+    lo = _kernel_operand(xs[-1], hi.stride(1))
+    return hi, lo, _kernel_operand(xj)
 
 
 def mi_tile_single(xi_hi, xi_lo, xj, ipf, jpf, pseudocount: float = 0.5,
@@ -215,23 +268,26 @@ def mi_tile_single(xi_hi, xi_lo, xj, ipf, jpf, pseudocount: float = 0.5,
     (S, TI*5) / (S, TJ*5) slab one-hots with unit column stride (row
     strides may exceed the width: column slices of the alignment's
     one-hot pass without a copy); ipf/jpf are (TI*5,)/(TJ*5,) slab
-    presence.  ``xi_lo=None`` selects the single-pass mode."""
+    presence.  ``xi_lo=None`` selects the single-pass mode.  Operands may
+    also be K-major views (module docstring); two int8 passes need m1 to
+    divide m0 on the card."""
     if xj.device.type == "cpu":
         return mi_tile_single_plain(xi_hi, xi_lo, xj, ipf, jpf, pseudocount,
                                     bw, pass_mults, acc_scale)
     if not xj.is_cuda:
         raise ValueError(f"mi_tile_single: unsupported device {xj.device}")
     xs, mults, S, TI, TJ = _check_operands("mi_tile_single", xi_hi, xi_lo, xj,
-                                           ((ipf, jpf),), bw, pass_mults)
+                                           ((ipf, jpf),), bw, pass_mults, k_major_ok=True)
     out = torch.empty((TI, TJ), dtype=torch.float32, device=xj.device)
     if out.numel() == 0:
         return out
+    hi, lo, xk = _kernel_operands(xs, xj)
     lib = cuda_build.load()
     stream = torch.cuda.current_stream(xj.device).cuda_stream
     rc = lib.spk_mi_tile_single(
         0 if xi_hi.dtype == torch.int8 else 1,
-        xi_hi.data_ptr(), xs[-1].data_ptr(), xj.data_ptr(),
-        xi_hi.stride(0), xj.stride(0), ipf.data_ptr(), jpf.data_ptr(),
+        hi.data_ptr(), lo.data_ptr(), xk.data_ptr(),
+        hi.stride(1), xk.stride(1), ipf.data_ptr(), jpf.data_ptr(),
         out.data_ptr(), out.stride(0), S, TI, TJ, bw, bw, len(xs),
         float(mults[0]), float(mults[-1]), float(acc_scale), float(pseudocount),
         stream)
@@ -290,16 +346,17 @@ def crosstab_tile(xi_hi, xi_lo, xj, bw: int = BW, pass_mults: tuple = (1, 1)) ->
     if not xj.is_cuda:
         raise ValueError(f"crosstab_tile: unsupported device {xj.device}")
     xs, mults, S, TI, TJ = _check_operands("crosstab_tile", xi_hi, xi_lo, xj, (), bw,
-                                           pass_mults)
+                                           pass_mults, k_major_ok=True)
     int8 = xi_hi.dtype == torch.int8
     out = torch.empty((TI * N_STATES, TJ * N_STATES),
                       dtype=torch.int32 if int8 else torch.float32, device=xj.device)
     if out.numel() == 0:
         return out
+    hi, lo, xk = _kernel_operands(xs, xj)
     lib = cuda_build.load()
     rc = lib.spk_crosstab_tile(
-        0 if int8 else 1, xi_hi.data_ptr(), xs[-1].data_ptr(), xj.data_ptr(),
-        xi_hi.stride(0), xj.stride(0), out.data_ptr(), out.stride(0), S, TI, TJ, bw, bw,
+        0 if int8 else 1, hi.data_ptr(), lo.data_ptr(), xk.data_ptr(),
+        hi.stride(1), xk.stride(1), out.data_ptr(), out.stride(0), S, TI, TJ, bw, bw,
         len(xs), float(mults[0]), float(mults[-1]),
         torch.cuda.current_stream(xj.device).cuda_stream)
     cuda_build.check(rc, "crosstab_tile")

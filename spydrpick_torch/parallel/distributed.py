@@ -12,7 +12,8 @@ of its own, or on a device it shares with other processes.  Two ways in:
 
 The backend is a transport choice and follows one rule: ``nccl`` when
 every rank has a GPU of its own, ``gloo`` when ranks share a GPU (NCCL
-refuses two ranks on one card) or run on the CPU.  Under torchrun a rank
+refuses two ranks on one card) or run on the CPU (``SPYDRPICK_TORCH_DEVICE=cpu``,
+``device.py``).  Under torchrun a rank
 compares ``LOCAL_WORLD_SIZE`` with its host's GPU count; with the flags
 every rank first writes its host name and GPU count into the store, so
 all ranks decide from the same table.  The kernels run on the rank's
@@ -29,7 +30,7 @@ from datetime import timedelta
 import torch
 import torch.distributed as dist
 
-from spydrpick_torch.device import default_device
+from spydrpick_torch.device import default_device, gpu_count
 
 TIMEOUT = timedelta(minutes=10)  # rendezvous and collectives
 
@@ -63,7 +64,7 @@ def initialize_distributed(coordinator_address: str | None = None,
         if world == 1:
             return None
         store = dist.TCPStore(host, int(port), world, is_master=rank == 0, timeout=TIMEOUT)
-        store.set(f"spydrpick/host/{rank}", f"{socket.gethostname()} {torch.cuda.device_count()}")
+        store.set(f"spydrpick/host/{rank}", f"{socket.gethostname()} {gpu_count()}")
         hosts = []
         for r in range(world):
             name, n_gpus = store.get(f"spydrpick/host/{r}").decode().rsplit(" ", 1)
@@ -74,7 +75,7 @@ def initialize_distributed(coordinator_address: str | None = None,
     elif int(os.environ.get("WORLD_SIZE", "1")) > 1:
         world = int(os.environ["WORLD_SIZE"])
         per_host = int(os.environ.get("LOCAL_WORLD_SIZE", world))
-        backend = choose_backend([("host", torch.cuda.device_count())] * per_host)
+        backend = choose_backend([("host", gpu_count())] * per_host)
         dist.init_process_group(backend, init_method="env://", timeout=TIMEOUT)
     else:
         return None

@@ -33,8 +33,8 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
-from spydrpick_tpu.core.alignment import Alignment
-from spydrpick_tpu.core.alphabet import N_STATES
+from spydrpick_torch.core.alignment import Alignment
+from spydrpick_torch.core.alphabet import N_STATES
 from spydrpick_torch.device import default_device, synchronize
 from spydrpick_torch.engine.solver import (
     _PAIRS_BUDGET,

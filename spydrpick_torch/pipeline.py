@@ -3,8 +3,9 @@
 Stages: load -> include/exclude trim -> position filter -> sample trim ->
 sample weights -> MI save threshold (auto: tournament) -> all-pairs MI
 sweep -> Tukey outlier thresholds -> sort -> ARACNE -> couplings/outlier
-outputs.  Host stages reuse the reference's jax-free modules; the device
-stages run on ``spydrpick_torch.device.default_device()``.
+outputs.  Host stages run the port's own copies of the reference's host
+modules (``core``, ``io``, ``native``, ``utils``); the device stages run on
+``spydrpick_torch.device.default_device()``.
 
 In a run of several processes (``parallel/distributed.py``) every rank
 runs every stage and ends with the same results; only rank 0 writes
@@ -22,19 +23,17 @@ import time
 
 import numpy as np
 
-from spydrpick_tpu.core.alignment import Alignment
-from spydrpick_tpu.core.filter import FilterParams, filter_list
-from spydrpick_tpu.io.fasta import read_fasta, write_fasta
-from spydrpick_tpu.io.loci import parse_loci_list
-from spydrpick_tpu.io.writers import (
+from spydrpick_torch.core.alignment import Alignment
+from spydrpick_torch.core.filter import FilterParams, filter_list
+from spydrpick_torch.io.fasta import read_fasta, write_fasta
+from spydrpick_torch.io.loci import parse_loci_list
+from spydrpick_torch.io.writers import (
     write_couplings,
     write_distance_matrix,
     write_outliers,
     write_sample_weights,
     write_state_frequencies,
 )
-from spydrpick_tpu.utils.stopwatch import Stopwatch
-from spydrpick_tpu.utils.uniquefile import unique_path
 from spydrpick_torch.core.weights import (
     DEFAULT_REWEIGHTING_THRESHOLD,
     cache_sample_weights,
@@ -46,6 +45,8 @@ from spydrpick_torch.engine.outliers import outlier_thresholds
 from spydrpick_torch.engine.solver import EdgeSet, EngineConfig, MIEngine
 from spydrpick_torch.engine.threshold import default_mi_values, determine_mi_threshold
 from spydrpick_torch.parallel.distributed import is_writer, world_size
+from spydrpick_torch.utils.stopwatch import Stopwatch
+from spydrpick_torch.utils.uniquefile import unique_path
 
 
 @dataclasses.dataclass
@@ -206,10 +207,10 @@ def run_pipeline(opts: PipelineOptions, write_outputs: bool = True,
     phases under sweep_phases), sort_s, aracne_s (aracne_phases), write_s
     and total_s.  Each stage boundary waits for the device first, so a
     stage's time includes its device work."""
+    device = default_device()
     if is_writer():
         os.makedirs(opts.output_dir, exist_ok=True)
     tm = timings if timings is not None else {}
-    device = default_device()
 
     def _stage(name: str, t0: float) -> float:
         synchronize(device)

@@ -1,2 +1,2 @@
-"""Tracing helpers of the port (the stopwatch and unique-path helpers are
-reused from ``spydrpick_tpu.utils``)."""
+"""Host helpers of the port: the stopwatch and unique output paths (copies
+of ``spydrpick_tpu.utils``) and the torch.profiler trace reader."""

@@ -7,24 +7,29 @@ TITLE = "spydrpick-torch: MI-ARACNE genome-wide co-evolution analysis on PyTorch
 
 def version_string() -> str:
     """Banner: package version, then the torch version, the CUDA runtime
-    torch was built for, the device the run resolves to and, in a run of
-    several processes, this process's rank, the process count and the
-    collective backend (the JAX banner reports the jax/jaxlib versions
-    and backend instead)."""
+    torch was built for, the device the run resolves to (or that no CUDA
+    device is visible: the banner never raises) and, in a run of several
+    processes, this process's rank, the process count and the collective
+    backend (the JAX banner reports the jax/jaxlib versions and backend
+    instead)."""
     import torch
     import torch.distributed as dist
 
-    from spydrpick_torch.device import default_device
+    from spydrpick_torch.device import DEVICE_ENV, cpu_requested, default_device
 
-    dev = default_device()
     parts = [f"spydrpick-torch version {__version__}", f"torch {torch.__version__}",
              f"CUDA {torch.version.cuda or 'none'}"]
-    if dev.type == "cuda":
+    if cpu_requested():
+        dev = torch.device("cpu")
+        parts.append(f"cpu device ({DEVICE_ENV}=cpu: plain PyTorch kernels)")
+    elif torch.cuda.is_available():
+        dev = default_device()
         parts.append(f"cuda device ({torch.cuda.device_count()}x "
                      f"{torch.cuda.get_device_name(dev)})")
     else:
-        parts.append("cpu device (plain PyTorch kernels)")
-    if dist.is_available() and dist.is_initialized():
+        dev = None
+        parts.append("no CUDA device")
+    if dev is not None and dist.is_available() and dist.is_initialized():
         parts.append(f"rank {dist.get_rank()} of {dist.get_world_size()} on "
                      f"{dev} ({dist.get_backend()} backend)")
     return " | ".join(parts)

@@ -24,6 +24,16 @@ TILE = 128
 THR = 0.02
 
 
+@pytest.fixture(autouse=True, scope="module")
+def cpu_device():
+    """These runs ask for the CPU, as a CLI run on a machine without a GPU
+    must (spydrpick_torch/device.py); module-scoped, so that the module's
+    fixtures that run the CLI see it too."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("SPYDRPICK_TORCH_DEVICE", "cpu")
+        yield
+
+
 class Killed(Exception):
     pass
 

@@ -29,6 +29,16 @@ from tests.golden.make_golden import GOLDEN2_ARGS
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 TOL = 1e-5
 
+
+@pytest.fixture(autouse=True, scope="module")
+def cpu_device():
+    """These runs ask for the CPU, as a CLI run on a machine without a GPU
+    must (spydrpick_torch/device.py); module-scoped, so that the module's
+    fixtures that run the CLI see it too."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("SPYDRPICK_TORCH_DEVICE", "cpu")
+        yield
+
 FIXTURES = {
     "golden": ([os.path.join(GOLDEN, "golden.fasta"), "--seed", "7", "--ld-threshold", "10",
                 "--mi-values", "1500", "--output-state-frequencies",

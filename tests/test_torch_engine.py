@@ -181,3 +181,26 @@ def test_aracne_copy_equals_reference():
     want = (~jax_aracne_mark_indirect(i, j, mi)).astype(np.uint8)
     np.testing.assert_array_equal(run_aracne(i, j, mi, use_native=False), want)
     np.testing.assert_array_equal(run_aracne(i, j, mi), want)
+
+
+@pytest.mark.parametrize("mxu_int8,unit", [("auto", True), ("auto", False), ("off", False)])
+def test_engine_k_major_operands_equal_the_sample_major_ones(mxu_int8, unit):
+    """The engine's K-major copy is the transpose of its slab one-hot with
+    zero pad rows, and a block-row's K1 operands (``row_args``, views of
+    K-major tensors) hold the values of B3's sample-major ones."""
+    al = random_alignment(n_samples=45, n_loci=300, seed=8, gap_frac=0.1)
+    if unit:
+        al.weights = None
+    eng = MIEngine(al, EngineConfig(tile=128, mxu_int8=mxu_int8), device="cpu")
+    oh, ohk = eng.data.onehot, eng._onehot_k
+    assert torch.equal(ohk[:, :45], oh.T) and not ohk[:, 45:].any()
+    assert ohk.shape[1] % (16 // oh.element_size()) == 0
+    for i0 in (0, 128):
+        k = eng.row_args(i0)
+        s = eng.row_dual_args(i0)
+        for a, b in zip(k[:3], s[:3]):
+            assert (a is None) == (b is None)
+            if a is not None:
+                assert a.stride(0) == 1 and torch.equal(a, b)
+        assert all(torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+                   for x, y in zip(k[3:], s[3:5] + s[7:]))

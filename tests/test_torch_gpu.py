@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from spydrpick_tpu.core.alignment import Alignment
+from spydrpick_torch.core.alignment import Alignment
 from spydrpick_torch.core.weights import sample_match_counts
 from spydrpick_torch.engine.solver import EngineConfig, MIEngine
 from spydrpick_torch.ops.compact import route_rows, route_rows_plain
@@ -157,7 +157,9 @@ def wog_presence(pf):
 
 def assert_b3_matches(args, single_args):
     """B3 against its plain version (mi and wog within TOL) and its mi
-    against K1's on the same operands, bit for bit."""
+    against K1's on the same operands: bit for bit in the int8 modes, within
+    TOL in bf16, where K1's tensor cores sum in another order than B3's
+    scalar loop."""
     launches = mi_tile_dual.launches
     mi, wog = mi_tile_dual(*args)
     want_mi, want_wog = mi_tile_dual_plain(*args)
@@ -167,7 +169,10 @@ def assert_b3_matches(args, single_args):
     assert bool(torch.isfinite(mi).all()) and bool(torch.isfinite(wog).all())
     assert float((mi - want_mi).abs().max()) <= TOL
     assert float((wog - want_wog).abs().max()) <= TOL
-    assert torch.equal(mi, k1)
+    if args[0].dtype == torch.int8:
+        assert torch.equal(mi, k1)
+    else:
+        assert float((mi - k1).abs().max()) <= TOL
     assert not torch.equal(mi, wog)  # the operands have gaps
 
 

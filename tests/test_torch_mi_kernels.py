@@ -122,3 +122,55 @@ def test_k1_rejects_other_devices():
     p = torch.zeros(BW * N_STATES, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         mi_tile_single(x, None, x, p, p, 0.5, BW, (1,), 1.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("S", [1, 45, 64])
+def test_k_major_is_the_transpose_with_zero_pad_rows(dtype, S):
+    """K1 and B4 read K-major operands: k_major(x) holds x transposed, its
+    rows padded with zeros to a multiple of 16 bytes, and its [:, :S].T view
+    is x again with unit row stride."""
+    x = torch.from_numpy(np.random.default_rng(S).integers(-3, 4, (S, 2 * BW))).to(dtype)
+    xt = mi_kernels.k_major(x)
+    step = 16 // x.element_size()
+    assert xt.shape == (2 * BW, -(-S // step) * step) and xt.is_contiguous()
+    assert torch.equal(xt[:, :S], x.T) and not xt[:, S:].any()
+    view = xt[:, :S].T
+    assert view.stride(0) == 1 and torch.equal(view, x)
+    assert mi_kernels._kernel_operand(view).data_ptr() == view.data_ptr()  # no copy
+    again = mi_kernels._kernel_operand(x)  # a sample-major operand is copied
+    assert again.stride(0) == 1 and torch.equal(again, x)
+
+
+@pytest.mark.parametrize("mode", ["unit", "fixed14", "bf16"])
+def test_plain_versions_take_k_major_operands(mode):
+    """The engine hands K1 and B4 K-major views; their plain versions give
+    the sample-major operands' values bit for bit."""
+    _, ops = operands(mode, 45, 128, 256, seed=3)
+    hi, lo, xj, ipf, jpf, mults, scale = ops
+    hi, xj, ipf, jpf = to_torch(hi), to_torch(xj), to_torch(ipf), to_torch(jpf)
+    lo = None if lo is None else to_torch(lo)
+    kview = lambda x: None if x is None else mi_kernels.k_major(x)[:, :x.shape[0]].T
+    args = (0.5, BW, mults, scale)
+    assert torch.equal(mi_tile_single(kview(hi), kview(lo), kview(xj), ipf, jpf, *args),
+                       mi_tile_single(hi, lo, xj, ipf, jpf, *args))
+    assert torch.equal(mi_kernels.crosstab_tile(kview(hi), kview(lo), kview(xj), BW, mults),
+                       mi_kernels.crosstab_tile(hi, lo, xj, BW, mults))
+
+
+def test_k1_b4_refuse_what_the_tensor_core_loop_cannot_run():
+    """Off the CPU, K1 and B4 take either layout, but need 32-column tiles
+    and, for two int8 passes, m1 dividing m0 (acc = (m0 / m1) * P0 + P1)."""
+    x = torch.zeros((64, 2 * 32 * N_STATES), dtype=torch.int8)
+    check = lambda lo, bw, mults: mi_kernels._check_operands("k1", x, lo, x, (), bw, mults,
+                                                             k_major_ok=True)
+    check(x, 32, (128, 1))
+    check(None, 64, (1,))
+    with pytest.raises(ValueError, match="m1 dividing m0"):
+        check(x, 32, (128, 3))
+    with pytest.raises(ValueError, match="bw % 32"):
+        check(None, 16, (1,))
+    xt = mi_kernels.k_major(x)[:, :64].T
+    with pytest.raises(ValueError, match="unit column stride"):
+        mi_kernels._check_operands("b3", xt, None, xt, (), 16, (1,))
+    mi_kernels._check_operands("k1", xt, None, xt, (), 32, (1,), k_major_ok=True)

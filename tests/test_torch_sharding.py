@@ -54,6 +54,16 @@ WOGS = ("outliers", "full")
 THR = 0.02
 
 
+@pytest.fixture(autouse=True, scope="module")
+def cpu_device():
+    """These runs ask for the CPU, as a CLI run on a machine without a GPU
+    must (spydrpick_torch/device.py); module-scoped, so that the module's
+    fixtures that run the CLI see it too."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("SPYDRPICK_TORCH_DEVICE", "cpu")
+        yield
+
+
 def free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -64,7 +74,7 @@ def spawn(jobs):
     """Run every job (a list of argv lists, one per rank) at once; fail
     the test if a rank times out or exits non-zero.  Returns the outputs."""
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""),
-               OMP_NUM_THREADS="2")
+               OMP_NUM_THREADS="2", SPYDRPICK_TORCH_DEVICE="cpu")
     procs = [subprocess.Popen(argv, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                               cwd=REPO) for argv in jobs]
     outs = []

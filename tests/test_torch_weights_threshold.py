@@ -27,6 +27,16 @@ from tests.golden.make_golden import GOLDEN2_ARGS
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def cpu_device():
+    """These runs ask for the CPU, as a CLI run on a machine without a GPU
+    must (spydrpick_torch/device.py); module-scoped, so that the module's
+    fixtures that run the CLI see it too."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("SPYDRPICK_TORCH_DEVICE", "cpu")
+        yield
+
+
 def duplicated_alignment():
     """Random alignment with near-duplicate samples, so that identity
     clusters (and non-unit weights) exist at the 0.9 threshold."""
