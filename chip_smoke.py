@@ -8,8 +8,8 @@ Phases (each raises on failure; nothing is caught):
   1. environment and build: versions, the card's name and power limit,
      the nvcc build of spydrpick_torch/csrc (ptxas registers and spills),
      the g++ build of the native host libraries (spydrpick_torch/native),
-     and a SASS check (cuobjdump) that K1's and B4's kernels run on the
-     tensor cores: IMMA (int8) or HMMA (bf16), and no IDP.4A;
+     and a SASS check (cuobjdump) that K1's, B3's and B4's kernels run on
+     the tensor cores: IMMA (int8) or HMMA (bf16), and no IDP.4A;
   2. kernel K1 (MI tile) against its plain PyTorch version, max |dmi| <=
      1e-5 (0 in the int8 modes), with both times and K1's bound and
      roofline share:
@@ -21,13 +21,14 @@ Phases (each raises on failure; nothing is caught):
         bench alignment, at the first block-row and one in the middle
         (TJ = Lp - i0, a sample tail), in the fixed14, unit-int8 and bf16
         modes;
-     c. kernel B3 (dual MI tile) against its plain version on operands
-        made as in 2a and on the engine's own dual block-row arguments
-        (``MIEngine.row_dual_args``, sample-major) as in 2b: max |dmi| and
-        max |dwog| <= 1e-5, and its mi equal to K1's on the same values
-        bit for bit in the int8 modes (within 1e-5 in bf16, where B3's
-        scalar loop and K1's tensor cores sum in other orders); B3, plain
-        and K1 times;
+     c. kernel B3 (dual MI tile, K1's tensor-core loop with a second
+        epilogue) against its plain version on operands made as in 2a and
+        on the engine's own dual block-row arguments
+        (``MIEngine.row_dual_args``, K-major views) as in 2b: max |dmi| and
+        max |dwog| <= 1e-5 (0 in the int8 modes), its mi equal to K1's on
+        the same operands bit for bit in every mode, and in the int8 modes
+        its (mi, wog) equal to B4 -> ``xtab_to_f32`` -> B5's; B3, plain and
+        K1 times, B3's bound and roofline share;
      d. kernels B4 (crosstable tile) and B5 (entropy epilogue) on the same
         operands as 2a and 2b: B4's int32 crosstable equal to its plain
         version (bf16: within 1e-5 of the largest cell), B5's mi and wog
@@ -50,7 +51,8 @@ Phases (each raises on failure; nothing is caught):
      5's threshold launches B3 once per block-row (60) and K1 never; its
      edges, mi and colmax equal the lazy sweep's bit for bit, the lazy
      sweep's outlier candidates (wog from the pairs path) agree within
-     1e-5, and edges whose columns have no gaps carry wog == mi;
+     1e-5, and edges whose columns have no gaps carry wog == mi; both
+     sweeps' times and peak device memory;
   7. checkpoint and resume at that size: a checkpointed sweep of the
      engine ``run_pipeline`` builds is killed from its progress callback
      after block-row 24; ``cli.main`` with phase 5's flags plus
@@ -175,11 +177,11 @@ def build_native():
           + ", ".join(str(p.relative_to(native.BUILD_DIR.parents[1])) for p in libs))
 
 
-TC_KERNELS = ("mi_tile_mma_kernel", "crosstab_mma_kernel")  # K1 and B4
+TC_KERNELS = ("mi_tile_mma_kernel", "mi_tile_dual_mma_kernel", "crosstab_mma_kernel")  # K1 B3 B4
 
 
 def check_sass(lib):
-    """K1's and B4's kernels must run on the tensor cores: their SASS
+    """K1's, B3's and B4's kernels must run on the tensor cores: their SASS
     (cuobjdump) holds IMMA (int8 instance) or HMMA (bf16) and no IDP.4A."""
     from spydrpick_torch.ops import cuda_build
 
@@ -228,9 +230,9 @@ def phase_env():
     build_native()
     kernel = "?"
     for line in report.splitlines():
-        # a mangled template instance: ...mi_tile_i8_kernelILi2ELb1EE... is
-        # <2, 1>, ...mi_tile_mma_kernelIaE... <int8>, ...I13__nv_bfloat16E... <bf16>
-        m = re.search(r"entry function '\w*?((?:mi_tile|crosstab)_(?:i8|bf16|mma)_kernel"
+        # a mangled template instance: ...mi_epilogue_kernelILb1EE... is
+        # <1>, ...mi_tile_mma_kernelIaE... <int8>, ...I13__nv_bfloat16E... <bf16>
+        m = re.search(r"entry function '\w*?((?:mi_tile|mi_tile_dual|crosstab)_mma_kernel"
                       r"|route_rows_kernel|mi_epilogue_kernel)(?:I(\w+?)E+|E)v", line)
         if m:
             targs = m.group(2) or ""
@@ -332,14 +334,19 @@ def wog_presence(pf):
     return pw.reshape(-1)
 
 
-def b3_compare(label, args, n, n_plain, k1_args):
-    """B3 against its plain version on the same arguments (max |dmi| and
-    max |dwog| must be <= K1_TOL), its mi against K1's on ``k1_args`` (the
-    same values, K-major): equal in the int8 modes, within K1_TOL in bf16,
-    where K1's tensor cores sum in another order than B3's scalar loop;
-    returns both errors and B3's, plain's and K1's mean times."""
-    from spydrpick_torch.ops.mi_kernels import mi_tile_dual, mi_tile_dual_plain, mi_tile_single
+def b3_compare(label, args, n, n_plain):
+    """B3 against its plain version on ``args`` (max |dmi| and max |dwog|
+    must be <= K1_TOL, and 0 in the int8 modes), its mi against K1's on the
+    same operands (bit for bit in every mode: one main loop, conversion and
+    epilogue) and, in the int8 modes, its (mi, wog) against B4 ->
+    ``xtab_to_f32`` -> B5's (bit for bit); returns both errors, B3's,
+    plain's and K1's mean times and B3's bound (ms, what sets it)."""
+    from spydrpick_torch.ops.mi_kernels import (crosstab_tile, mi_epilogue, mi_tile_dual,
+                                                mi_tile_dual_plain, mi_tile_single, xtab_to_f32)
 
+    xi_hi, xi_lo, xj, ipf, jpf, ipwf, jpwf, pc, bw, mults, scale = args
+    int8 = xi_hi.dtype == torch.int8
+    k1_args = args[:5] + args[7:]
     mi, wog = mi_tile_dual(*args)
     want_mi, want_wog = mi_tile_dual_plain(*args)
     k1 = mi_tile_single(*k1_args)
@@ -348,16 +355,31 @@ def b3_compare(label, args, n, n_plain, k1_args):
         raise AssertionError(f"B3 {label}: shape {tuple(mi.shape)} or non-finite output")
     err_mi = float((mi - want_mi).abs().max())
     err_wog = float((wog - want_wog).abs().max())
-    if err_mi > K1_TOL or err_wog > K1_TOL:
-        raise AssertionError(f"B3 {label}: max|dmi| {err_mi}, max|dwog| {err_wog} > {K1_TOL}")
-    d_k1 = float((mi - k1).abs().max())
-    if (not torch.equal(mi, k1)) if args[0].dtype == torch.int8 else d_k1 > K1_TOL:
-        raise AssertionError(f"B3 {label}: mi differs from K1's by {d_k1}")
-    del mi, wog, want_mi, want_wog, k1
+    if max(err_mi, err_wog) > (0.0 if int8 else K1_TOL):
+        raise AssertionError(f"B3 {label}: max|dmi| {err_mi}, max|dwog| {err_wog} > "
+                             f"{0.0 if int8 else K1_TOL}")
+    if not torch.equal(mi, k1):
+        raise AssertionError(f"B3 {label}: mi differs from K1's by {float((mi - k1).abs().max())}")
+    del want_mi, want_wog, k1
+    if int8:
+        split = mi_epilogue(xtab_to_f32(crosstab_tile(xi_hi, xi_lo, xj, bw, mults), scale),
+                            ipf, jpf, ipwf, jpwf, pc, bw)
+        if not (torch.equal(mi, split[0]) and torch.equal(wog, split[1])):
+            raise AssertionError(f"B3 {label}: (mi, wog) differs from B4 -> B5's")
+        del split
+    del mi, wog
+    torch.cuda.empty_cache()
     ms = cuda_time_ms(lambda: mi_tile_dual(*args), n)
     plain_ms = cuda_time_ms(lambda: mi_tile_dual_plain(*args), n_plain)
     k1_ms = cuda_time_ms(lambda: mi_tile_single(*k1_args), n)
-    return err_mi, err_wog, ms, plain_ms, k1_ms
+    TI, TJ = xi_hi.shape[1] // 5, xj.shape[1] // 5
+    return err_mi, err_wog, ms, plain_ms, k1_ms, xtab_bound(xi_hi, xi_lo, xj, 2 * TI * TJ * 4, 2)
+
+
+def print_b3(label, int8, err_mi, err_wog, ms, plain_ms, k1_ms, b3_bound):
+    print(f"# B3 {label}: max|dmi|={err_mi:.3e} max|dwog|={err_wog:.3e}, mi == K1's"
+          f"{', (mi, wog) == B4->B5' if int8 else ''}; kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms, K1 {k1_ms:.3f} ms; {share(ms, b3_bound[0])}", flush=True)
 
 
 def phase_b3(dev, S=3072, TI=512, widths=(512, 30720)):
@@ -368,17 +390,12 @@ def phase_b3(dev, S=3072, TI=512, widths=(512, 30720)):
     for TJ in widths:
         for mode in ("fixed14", "unit", "bf16"):
             xi_hi, xi_lo, xj, ipf, jpf, mults, scale = k1_operands(S, TI, TJ, mode, rng, dev)
-            args = (xi_hi, xi_lo, xj, ipf, jpf, wog_presence(ipf), wog_presence(jpf), 0.5, BW,
-                    mults, scale)
+            args = kmajor_args((xi_hi, xi_lo, xj, ipf, jpf, wog_presence(ipf),
+                                wog_presence(jpf), 0.5, BW, mults, scale))
             n = 20 if TJ == widths[0] else 5
-            k1_args = kmajor_args(args[:5] + args[7:])
-            err_mi, err_wog, ms, plain_ms, k1_ms = b3_compare(
-                f"{mode} S={S} TJ={TJ}", args, n, 2 if n == 5 else n, k1_args)
-            worst = max(worst, err_mi, err_wog)
-            print(f"# B3 {mode:8s} S={S} TI={TI} TJ={TJ:5d}: max|dmi|={err_mi:.3e} "
-                  f"max|dwog|={err_wog:.3e} mi {'==' if mode != 'bf16' else '~'} K1's; kernel "
-                  f"{ms:.3f} ms, plain {plain_ms:.3f} ms, K1 {k1_ms:.3f} ms", flush=True)
-            del k1_args
+            res = b3_compare(f"{mode} S={S} TJ={TJ}", args, n, 2 if n == 5 else n)
+            worst = max(worst, res[0], res[1])
+            print_b3(f"{mode:8s} S={S} TI={TI} TJ={TJ:5d}", mode != "bf16", *res)
             del args, xi_hi, xi_lo, xj
             torch.cuda.empty_cache()
     return worst
@@ -418,11 +435,10 @@ def b4_library(xi_hi, xi_lo, xj, mults):
     return fn
 
 
-def split_compare(label, args, n, n_plain, dual_args=None):
-    """B4 and B5 against their plain versions on ``args`` (B3's argument
-    layout, operands K-major as K1 and B4 read them), and B4 ->
-    xtab_to_f32 -> B5 against K1 and B3 (B3 on ``dual_args``, the same
-    values sample-major; bit for bit in the int8 modes); B4's yardstick
+def split_compare(label, args, n, n_plain):
+    """B4 and B5 against their plain versions on ``args`` (B3's arguments,
+    operands K-major as K1, B3 and B4 read them), and B4 -> xtab_to_f32 ->
+    B5 against K1 and B3 (bit for bit in the int8 modes); B4's yardstick
     (``b4_library``) must give its table too.  Returns (B4 error, B5
     error, times in ms: B4, plain B4, B5, plain B5, dual B5, K1, library
     or None, bounds: B4's and B5's (ms, what sets it))."""
@@ -431,7 +447,6 @@ def split_compare(label, args, n, n_plain, dual_args=None):
                                                 mi_tile_single, xtab_to_f32)
 
     xi_hi, xi_lo, xj, ipf, jpf, ipwf, jpwf, pc, bw, mults, scale = args
-    dual_args = args if dual_args is None else dual_args
     int8 = xi_hi.dtype == torch.int8
     TI, TJ = xi_hi.shape[1] // 5, xj.shape[1] // 5
     C = crosstab_tile(xi_hi, xi_lo, xj, bw, mults)
@@ -459,7 +474,7 @@ def split_compare(label, args, n, n_plain, dual_args=None):
     k1_args = args[:5] + args[7:]
     if int8:
         k1 = mi_tile_single(*k1_args)
-        b3 = mi_tile_dual(*dual_args)
+        b3 = mi_tile_dual(*args)
         if not (torch.equal(mi, k1) and torch.equal(mi, b3[0]) and torch.equal(wog, b3[1])):
             raise AssertionError(f"B4 -> B5 {label}: differs from K1/B3")
         del k1, b3
@@ -515,7 +530,7 @@ def phase_split(dev, S=3072, TI=512, widths=(512, 30720)):
                     mults, scale)
             n = 20 if TJ == widths[0] else 5
             e4, e5, times = split_compare(f"{mode} S={S} TJ={TJ}", kmajor_args(args), n,
-                                          2 if n == 5 else n, args)
+                                          2 if n == 5 else n)
             if xi_hi.dtype != torch.int8:
                 e4 = 0.0  # bf16 B4 sums in another order: held to its own bound above
             err_b4, err_b5 = max(err_b4, e4), max(err_b5, e5)
@@ -559,20 +574,13 @@ def phase_k1_main(dev, fasta, wfile):
                         "bound_by": bound_by, "library_ms": None}
             del xi, xj
             dual = eng.row_dual_args(i0)
-            err_mi, err_wog, ms, plain_ms, k1_ms = b3_compare(
-                f"main-path {mode} i0={i0}", dual, 5, 2, args)
-            b3_worst = max(b3_worst, err_mi, err_wog)
-            TI, TJ = dual[0].shape[1] // 5, dual[2].shape[1] // 5
-            b3_bound, b3_by = xtab_bound(dual[0], dual[1], dual[2], 2 * TI * TJ * 4, 2)
-            print(f"# B3 main path {mode:7s} S={eng.S} i0={i0:5d}: max|dmi|={err_mi:.3e} "
-                  f"max|dwog|={err_wog:.3e} mi {'==' if mode != 'off' else '~'} K1's; kernel "
-                  f"{ms:.3f} ms, plain {plain_ms:.3f} ms, K1 {k1_ms:.3f} ms; "
-                  f"{share(ms, b3_bound)}", flush=True)
+            res = b3_compare(f"main-path {mode} i0={i0}", dual, 5, 2)
+            b3_worst = max(b3_worst, res[0], res[1])
+            print_b3(f"main path {mode:7s} S={eng.S} i0={i0:5d}", mode != "off", *res)
             if mode == "fixed14" and i0 == 0:
-                b3 = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b3_bound, "bound_by": b3_by,
-                      "library_ms": None}
-            e4, e5, times = split_compare(f"main-path {mode} i0={i0}",
-                                          args[:5] + dual[5:7] + args[5:], 5, 2, dual)
+                b3 = {"ms": res[2], "plain_ms": res[3], "bound_ms": res[5][0],
+                      "bound_by": res[5][1], "library_ms": None}
+            e4, e5, times = split_compare(f"main-path {mode} i0={i0}", dual, 5, 2)
             del args, dual
             int8 = mode != "off"
             split_err[0] = max(split_err[0], e4 if int8 else 0.0)
@@ -733,11 +741,15 @@ def pipeline_engine(dev, fasta, wfile):
 
 
 def timed_sweep(engine, thr):
+    """(edges, seconds, peak device memory in GiB) of ``engine.sweep(thr)``;
+    the peak counts what is allocated when the sweep starts (the engine's
+    tensors) and what the sweep adds."""
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     edges = engine.sweep(thr)
     torch.cuda.synchronize()
-    return edges, time.perf_counter() - t0
+    return edges, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
 
 
 def phase_dual_sweep(dev, fasta, wfile, L=L_BENCH):
@@ -748,13 +760,14 @@ def phase_dual_sweep(dev, fasta, wfile, L=L_BENCH):
     from spydrpick_torch.ops.mi_kernels import mi_tile_dual, mi_tile_single
 
     al, lazy_engine, thr = pipeline_engine(dev, fasta, wfile)
-    lazy, lazy_s = timed_sweep(lazy_engine, thr)
+    lazy, lazy_s, lazy_gib = timed_sweep(lazy_engine, thr)
     del lazy_engine
+    torch.cuda.empty_cache()
     engine = MIEngine(al, EngineConfig(wog_fetch="full"), device=dev)
     if engine.statics.int8_mode != "fixed14" or engine.statics.wog_lazy:
         raise AssertionError(f"dual sweep engine runs {engine.statics}")
     mi_tile_single.launches = mi_tile_dual.launches = route_rows.launches = 0
-    full, full_s = timed_sweep(engine, thr)
+    full, full_s, full_gib = timed_sweep(engine, thr)
     launches = {"mi_tile_single": mi_tile_single.launches, "mi_tile_dual": mi_tile_dual.launches,
                 "route_rows": route_rows.launches}
     n_rows = -(-L // TILE)
@@ -777,7 +790,8 @@ def phase_dual_sweep(dev, fasta, wfile, L=L_BENCH):
           f"edges, edges/mi/colmax equal to the lazy sweep's; {int(cand.sum())} outlier "
           f"candidates, max|dwog| vs pairs path {err:.3e}; {int(no_gap.sum())} edges without "
           f"gaps (wog == mi); max|wog - mi| {float(np.max(np.abs(full.mi_wog - full.mi))):.4f}; "
-          f"sweep lazy {lazy_s:.3f} s, dual {full_s:.3f} s; launches {launches}", flush=True)
+          f"sweep lazy {lazy_s:.3f} s, dual {full_s:.3f} s; peak device memory lazy "
+          f"{lazy_gib:.3f} GiB, dual {full_gib:.3f} GiB; launches {launches}", flush=True)
     return launches, err
 
 
@@ -1045,7 +1059,7 @@ def main() -> int:
         {"name": "route_rows", "route": "cuda", "source": "spydrpick_torch/csrc/route_rows.cu",
          "replaces": "spydrpick_tpu/ops/compact_route.py:111",
          "launches": launches["route_rows"], "max_abs_err": k2_err, **k2},
-        {"name": "mi_tile_dual", "route": "cuda", "source": "spydrpick_torch/csrc/mi_tile.cu",
+        {"name": "mi_tile_dual", "route": "cuda", "source": "spydrpick_torch/csrc/xtab_mma.cu",
          "replaces": "spydrpick_tpu/ops/mi_pallas.py:523",
          "launches": dual_launches["mi_tile_dual"],
          "max_abs_err": max(b3_err, b3_main_err, dual_err), **b3},

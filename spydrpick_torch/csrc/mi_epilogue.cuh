@@ -1,5 +1,5 @@
 // The entropy epilogue of one column pair, shared by the fused MI tiles
-// (K1, B3 in mi_tile.cu) and the split path's epilogue kernel (B5 in
+// (K1, B3 in xtab_mma.cu) and the split path's epilogue kernel (B5 in
 // xtab.cu), so that every kernel computes mi from a crosstable with the
 // same code and the same rounding: _mi_from_block
 // (spydrpick_tpu/ops/mi_pallas.py:88-121) op for op, with

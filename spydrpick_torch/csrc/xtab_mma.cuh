@@ -1,4 +1,4 @@
-// The tensor-core main loop shared by kernels K1 and B4 (xtab_mma.cu): one
+// The tensor-core main loop shared by kernels K1, B3 and B4 (xtab_mma.cu): one
 // thread block's tile of the slab crosstable
 // C = sum_passes mult_p * (Xi_p^T Xj) over the samples, in registers.
 //

@@ -340,10 +340,10 @@ class MIEngine:
         # its j-range's presence vectors are contiguous slices
         self._pslab = to_slab(self.data.presence.reshape(-1), BW).contiguous()
         self._pwslab = to_slab(self.data.presence_wog.reshape(-1), BW).contiguous()
-        # K1 and B4 read their operands K-major (csrc/xtab_mma.cuh): a copy
-        # of the one-hot with each slab column's samples contiguous and
+        # K1, B3 and B4 read their operands K-major (csrc/xtab_mma.cuh): a
+        # copy of the one-hot with each slab column's samples contiguous and
         # zero-padded to 16 bytes, so that a block-row's operands are views
-        # of it; B3 and the pairs paths keep the sample-major one-hot
+        # of it
         self._onehot_k = k_major(self.data.onehot)
         self._rows = self.data.onehot.shape[0]
         Sp = self._onehot_k.shape[1]
@@ -397,16 +397,12 @@ class MIEngine:
         return mi_tile_single(*self.row_args(i0))
 
     def row_dual_args(self, i0: int) -> tuple:
-        """The B3 arguments of block-row i0: ``row_args``' operands
-        sample-major (the i side copied, the j side a strided view of the
-        one-hot), plus the matching slab presence with the gap bit
-        cleared."""
+        """The B3 arguments of block-row i0: ``row_args``' K-major views,
+        plus the matching slab presence with the gap bit cleared."""
         st = self.statics
         c0, c1 = i0 * N_STATES, (i0 + st.tile) * N_STATES
-        xi_hi, xi_lo, mults, scale = self.row_operands(i0)
-        xi_lo = None if xi_lo is None else xi_lo.contiguous()
-        return (xi_hi.contiguous(), xi_lo, self.data.onehot[:, c0:], self._pslab[c0:c1],
-                self._pslab[c0:], self._pwslab[c0:c1], self._pwslab[c0:], st.pseudocount, BW,
+        xi_hi, xi_lo, xj, ipf, jpf, pc, bw, mults, scale = self.row_args(i0)
+        return (xi_hi, xi_lo, xj, ipf, jpf, self._pwslab[c0:c1], self._pwslab[c0:], pc, bw,
                 mults, scale)
 
     def row_mi_dual(self, i0: int) -> tuple[torch.Tensor, torch.Tensor]:

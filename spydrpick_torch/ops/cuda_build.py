@@ -32,7 +32,8 @@ _vp, _i, _ll, _d, _f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                         ctypes.c_double, ctypes.c_float)
 _SIGNATURES = {
     # dtype, xi_hi, xi_lo, xj, ldi, ldj, ipf, jpf, out, ldo, S, TI, TJ,
-    # bw_i, bw_j, n_passes, m0, m1, acc_scale, pc, stream
+    # bw_i, bw_j, n_passes, m0, m1, acc_scale, pc, stream (ldi, ldj: the
+    # K-major operands' row strides, here and for B3 and B4)
     "spk_mi_tile_single": [_i, _vp, _vp, _vp, _ll, _ll, _vp, _vp, _vp, _ll,
                            _i, _i, _i, _i, _i, _i, _d, _d, _f, _f, _vp],
     # dtype, xi_hi, xi_lo, xj, ldi, ldj, ipf, jpf, ipwf, jpwf, out, out_wog,

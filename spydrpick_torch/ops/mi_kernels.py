@@ -13,17 +13,16 @@ presence vectors (wog).  ``crosstab_tile`` (B4) returns the crosstable
 itself, unscaled (int32 for int8 operands), so that sample shards can sum
 it exactly; ``xtab_to_f32`` converts the sum as K1 does and
 ``mi_epilogue`` (B5) runs K1's epilogue on it.  On CUDA tensors each
-launches its hand-written kernel (K1 and B4 in ``csrc/xtab_mma.cu`` on the
-tensor cores, B3 in ``csrc/mi_tile.cu``, B5 in ``csrc/xtab.cu``; design
-notes there); on CPU tensors it runs its ``*_plain`` twin, the same
-function in plain PyTorch.  One launch may cover a whole block-row (TJ =
-every column from the diagonal tile on): it is the same function on a
-wider tile.
+launches its hand-written kernel (K1, B3 and B4 in ``csrc/xtab_mma.cu`` on
+one tensor-core main loop, B5 in ``csrc/xtab.cu``; design notes there); on
+CPU tensors it runs its ``*_plain`` twin, the same function in plain
+PyTorch.  One launch may cover a whole block-row (TJ = every column from
+the diagonal tile on): it is the same function on a wider tile.
 
-Operand layout.  Every operand is an (S, T*5) tensor.  B3 takes it
-sample-major (unit column stride, any row stride).  K1 and B4 take either
-that or a K-major view, ``k_major(x)[:, :S].T`` (unit row stride: each slab
-column's samples contiguous), which is what their tensor-core loop reads;
+Operand layout.  Every operand is an (S, T*5) tensor, either sample-major
+(unit column stride, any row stride) or a K-major view,
+``k_major(x)[:, :S].T`` (unit row stride: each slab column's samples
+contiguous), which is what the tensor-core loop of K1, B3 and B4 reads;
 the engine keeps such a copy of its one-hot, and a sample-major operand
 is copied into one per call.  The plain versions give the same values
 for either layout.
@@ -69,7 +68,7 @@ def k_major(x: torch.Tensor) -> torch.Tensor:
     """The (n, Sp) K-major copy of an (S, n) operand: row k holds slab
     column k's S samples, then zeros up to Sp, S rounded up to 16 bytes, so
     every row starts 16-byte aligned.  ``k_major(x)[:, :S].T`` is the
-    operand again, as a view that K1 and B4 read without a copy."""
+    operand again, as a view that K1, B3 and B4 read without a copy."""
     S, n = x.shape
     step = max(1, 16 // x.element_size())
     out = torch.zeros((n, -(-S // step) * step), dtype=x.dtype, device=x.device)
@@ -78,7 +77,7 @@ def k_major(x: torch.Tensor) -> torch.Tensor:
 
 
 def _kernel_operand(x: torch.Tensor, ld: int | None = None) -> torch.Tensor:
-    """x as K1 and B4 read it: x itself when it is a K-major view whose row
+    """x as K1, B3 and B4 read it: x itself when it is a K-major view whose row
     stride (``ld`` when given) is a whole number of 16-byte units from an
     aligned start, else a K-major copy."""
     row_bytes = x.stride(1) * x.element_size()
@@ -217,10 +216,10 @@ def mi_tile_dual_plain(xi_hi, xi_lo, xj, ipf, jpf, ipwf, jpwf, pseudocount: floa
     return mi_epilogue_plain(C, ipf, jpf, ipwf, jpwf, pseudocount, bw)
 
 
-def _check_operands(name, xi_hi, xi_lo, xj, presence, bw, pass_mults, k_major_ok=False):
-    """Validate the kernels' operands; returns (passes, mults, S, TI, TJ).
-    ``presence``: the (i, j) presence vector pairs the kernel reads;
-    ``k_major_ok``: K-major views are accepted too (K1, B4)."""
+def _check_operands(name, xi_hi, xi_lo, xj, presence, bw, pass_mults):
+    """Validate the operands of K1, B3 and B4; returns (passes, mults, S,
+    TI, TJ).  ``presence``: the (i, j) presence vector pairs the kernel
+    reads."""
     xs, mults = _passes(xi_hi, xi_lo, pass_mults)
     S, TI5 = xi_hi.shape
     TJ5 = xj.shape[1]
@@ -230,12 +229,11 @@ def _check_operands(name, xi_hi, xi_lo, xj, presence, bw, pass_mults, k_major_ok
     for x in xs + (xj,):
         if x.dtype != xi_hi.dtype or x.device != xj.device or x.dim() != 2:
             raise ValueError(f"{name}: operands differ in dtype, device or rank")
-        if x.shape[0] != S or not (x.stride(1) == 1 or (k_major_ok and x.stride(0) == 1)):
+        if x.shape[0] != S or not (x.stride(1) == 1 or x.stride(0) == 1):
             raise ValueError(f"{name}: operands need S rows and unit column stride"
-                             + (" or unit row stride" if k_major_ok else ""))
-    if xi_lo is not None and (xi_lo.shape != xi_hi.shape
-                              or (not k_major_ok and xi_lo.stride(0) != xi_hi.stride(0))):
-        raise ValueError(f"{name}: xi_hi and xi_lo need one shape and row stride")
+                             " or unit row stride")
+    if xi_lo is not None and xi_lo.shape != xi_hi.shape:
+        raise ValueError(f"{name}: xi_hi and xi_lo need one shape")
     if TI5 != TI * N_STATES or TJ5 != TJ * N_STATES or TI % bw or TJ % bw:
         raise ValueError(f"{name}: tile ({TI}, {TJ}) not in {bw}-column slab blocks")
     for ip, jp in presence:
@@ -245,8 +243,8 @@ def _check_operands(name, xi_hi, xi_lo, xj, presence, bw, pass_mults, k_major_ok
                 raise ValueError(f"{name}: presence must be contiguous f32 (T*5,)")
     if xi_hi.dtype == torch.int8 and any(m != int(m) for m in mults):
         raise ValueError(f"{name}: int8 passes need integer multipliers {mults}")
-    if k_major_ok and (bw % 32 or (len(xs) == 2 and (
-            mults[1] == 0 or (xi_hi.dtype == torch.int8 and int(mults[0]) % int(mults[1]))))):
+    if bw % 32 or (len(xs) == 2 and (
+            mults[1] == 0 or (xi_hi.dtype == torch.int8 and int(mults[0]) % int(mults[1])))):
         # the tensor-core loop: 32-column tiles, acc = (m0 / m1) * P0 + P1
         raise ValueError(f"{name}: needs bw % 32 == 0 and, for two int8 passes, "
                          f"m1 dividing m0 (bw {bw}, multipliers {mults})")
@@ -254,7 +252,7 @@ def _check_operands(name, xi_hi, xi_lo, xj, presence, bw, pass_mults, k_major_ok
 
 
 def _kernel_operands(xs, xj):
-    """(xi_hi, xi_lo, xj) as K1 and B4 read them (``_kernel_operand``):
+    """(xi_hi, xi_lo, xj) as K1, B3 and B4 read them (``_kernel_operand``):
     both i passes with one row stride."""
     hi = _kernel_operand(xs[0])
     lo = _kernel_operand(xs[-1], hi.stride(1))
@@ -277,7 +275,7 @@ def mi_tile_single(xi_hi, xi_lo, xj, ipf, jpf, pseudocount: float = 0.5,
     if not xj.is_cuda:
         raise ValueError(f"mi_tile_single: unsupported device {xj.device}")
     xs, mults, S, TI, TJ = _check_operands("mi_tile_single", xi_hi, xi_lo, xj,
-                                           ((ipf, jpf),), bw, pass_mults, k_major_ok=True)
+                                           ((ipf, jpf),), bw, pass_mults)
     out = torch.empty((TI, TJ), dtype=torch.float32, device=xj.device)
     if out.numel() == 0:
         return out
@@ -303,8 +301,9 @@ def mi_tile_dual(xi_hi, xi_lo, xj, ipf, jpf, ipwf, jpwf, pseudocount: float = 0.
                  bw: int = BW, pass_mults: tuple = (1, 1),
                  acc_scale: float = 1.0) -> tuple[torch.Tensor, torch.Tensor]:
     """(mi, wog), each (TI, TJ) f32, of a tile: ``mi_tile_single``'s
-    operands plus ipwf/jpwf, the slab presence with the gap bit cleared.
-    mi equals ``mi_tile_single``'s bit for bit.  Unit weights may run one
+    operands (either layout) plus ipwf/jpwf, the slab presence with the gap
+    bit cleared.  mi equals ``mi_tile_single``'s bit for bit (one main loop,
+    conversion and epilogue on the card).  Unit weights may run one
     int8 pass (``xi_lo=None``): the reference's dual path gives them a
     bf16 hi/lo split with lo = 0, which yields the same exact counts."""
     if xj.device.type == "cpu":
@@ -318,12 +317,13 @@ def mi_tile_dual(xi_hi, xi_lo, xj, ipf, jpf, ipwf, jpwf, pseudocount: float = 0.
     out_wog = torch.empty_like(out)
     if out.numel() == 0:
         return out, out_wog
+    hi, lo, xk = _kernel_operands(xs, xj)
     lib = cuda_build.load()
     stream = torch.cuda.current_stream(xj.device).cuda_stream
     rc = lib.spk_mi_tile_dual(
         0 if xi_hi.dtype == torch.int8 else 1,
-        xi_hi.data_ptr(), xs[-1].data_ptr(), xj.data_ptr(),
-        xi_hi.stride(0), xj.stride(0), ipf.data_ptr(), jpf.data_ptr(),
+        hi.data_ptr(), lo.data_ptr(), xk.data_ptr(),
+        hi.stride(1), xk.stride(1), ipf.data_ptr(), jpf.data_ptr(),
         ipwf.data_ptr(), jpwf.data_ptr(), out.data_ptr(), out_wog.data_ptr(),
         out.stride(0), S, TI, TJ, bw, bw, len(xs),
         float(mults[0]), float(mults[-1]), float(acc_scale), float(pseudocount),
@@ -346,7 +346,7 @@ def crosstab_tile(xi_hi, xi_lo, xj, bw: int = BW, pass_mults: tuple = (1, 1)) ->
     if not xj.is_cuda:
         raise ValueError(f"crosstab_tile: unsupported device {xj.device}")
     xs, mults, S, TI, TJ = _check_operands("crosstab_tile", xi_hi, xi_lo, xj, (), bw,
-                                           pass_mults, k_major_ok=True)
+                                           pass_mults)
     int8 = xi_hi.dtype == torch.int8
     out = torch.empty((TI * N_STATES, TJ * N_STATES),
                       dtype=torch.int32 if int8 else torch.float32, device=xj.device)

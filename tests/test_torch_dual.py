@@ -16,10 +16,12 @@ from spydrpick_tpu.engine.solver import MIEngine as JaxEngine
 from spydrpick_tpu.ops import mi_pallas
 from spydrpick_tpu.ops.reference import crosstab_pair, mi_single
 from spydrpick_torch.engine.solver import EngineConfig, MIEngine
+from spydrpick_torch.ops import mi_kernels
 from spydrpick_torch.ops.mi_kernels import (
     BW,
     mi_tile_dual,
     mi_tile_dual_plain,
+    mi_tile_single,
     mi_tile_single_plain,
 )
 
@@ -119,15 +121,10 @@ def edge_map(e):
                                                   e.mi.tolist(), e.mi_wog.tolist())}
 
 
-@pytest.mark.parametrize("mode", list(MODES))
-def test_full_wog_sweep_matches_jax(mode):
-    """wog_fetch="full": every edge's mi and wog within TOL of the JAX
-    engine's dual Pallas path."""
-    al, mxu_int8, extra = alignment_for(mode)
-    port = MIEngine(al, EngineConfig(tile=128, mxu_int8=mxu_int8, wog_fetch="full", **extra),
-                    device="cpu")
-    ref = JaxEngine(al, JaxConfig(tile=128, use_pallas="on", wog_fetch="full",
-                                  mxu_int8=mxu_int8, **extra))
+def assert_full_sweeps_agree(port, ref):
+    """The port's and the JAX engine's wog_fetch="full" sweeps: edge sets
+    equal apart from flips within TOL of the threshold, every common
+    edge's mi and wog within TOL, and wog != mi on most edges."""
     assert not port.statics.wog_lazy and not ref.statics.wog_lazy
     thr = save_threshold(port)
     ea, eb = edge_map(port.sweep(thr)), edge_map(ref.sweep(thr))
@@ -139,6 +136,18 @@ def test_full_wog_sweep_matches_jax(mode):
         assert abs(ea[k][0] - eb[k][0]) <= TOL, k
         assert abs(ea[k][1] - eb[k][1]) <= TOL, k
     assert sum(abs(m - w) > 1e-3 for m, w in ea.values()) > len(ea) // 2
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_full_wog_sweep_matches_jax(mode):
+    """wog_fetch="full": every edge's mi and wog within TOL of the JAX
+    engine's dual Pallas path."""
+    al, mxu_int8, extra = alignment_for(mode)
+    port = MIEngine(al, EngineConfig(tile=128, mxu_int8=mxu_int8, wog_fetch="full", **extra),
+                    device="cpu")
+    ref = JaxEngine(al, JaxConfig(tile=128, use_pallas="on", wog_fetch="full",
+                                  mxu_int8=mxu_int8, **extra))
+    assert_full_sweeps_agree(port, ref)
 
 
 def test_default_config_wog_matches_jax_default():
@@ -198,6 +207,74 @@ def test_row_mi_dual_is_row_mi_plus_effective_wog():
         assert torch.equal(wog[no_gap], mi[no_gap])
         raw = mi_tile_dual(*eng.row_dual_args(i0))[1]
         assert torch.equal(wog[~no_gap], raw[~no_gap])
+
+
+KERNEL_MODES = {"fixed14": ("auto", False), "unit": ("auto", True), "bf16": ("off", False)}
+
+
+def engine_for(mode, S, n_loci=300, seed=11, **cfg):
+    """A CPU engine on a random alignment of S samples whose operands run
+    in the given mode."""
+    mxu_int8, unit = KERNEL_MODES[mode]
+    al = random_alignment(n_samples=S, n_loci=n_loci, seed=seed, gap_frac=0.15)
+    if unit:
+        al.weights = None
+    eng = MIEngine(al, EngineConfig(tile=128, mxu_int8=mxu_int8, **cfg), device="cpu")
+    assert eng.statics.int8_mode == ("off" if mode == "bf16" else mode)
+    return eng
+
+
+def storage(x):
+    return x.untyped_storage().data_ptr()
+
+
+@pytest.mark.parametrize("S", [45, 64])
+@pytest.mark.parametrize("mode", list(KERNEL_MODES))
+def test_row_dual_args_are_k_major_views(mode, S):
+    """B3's block-row arguments are ``row_args``' K-major views: the j side
+    (and the unit-weight i side) a view of the engine's K-major one-hot,
+    the presence slices of its slab vectors, and every operand one that
+    the wrapper hands to the kernel as it is, so neither copies."""
+    eng = engine_for(mode, S)
+    for i0 in (0, 128):
+        xi_hi, xi_lo, xj, ipf, jpf, ipwf, jpwf, *_ = eng.row_dual_args(i0)
+        assert xj.shape == (S, (eng.Lp - i0) * 5)
+        assert storage(xj) == storage(eng._onehot_k)
+        assert (xi_lo is None) == (mode == "unit")
+        if mode == "unit":
+            assert storage(xi_hi) == storage(eng._onehot_k)
+        xs = (xi_hi,) if xi_lo is None else (xi_hi, xi_lo)
+        assert all(x.stride(0) == 1 for x in xs + (xj,))
+        got = mi_kernels._kernel_operands(xs, xj)
+        assert [x.data_ptr() for x in got] == [x.data_ptr() for x in (xs[0], xs[-1], xj)]
+        for p, slab in ((ipf, eng._pslab), (jpf, eng._pslab), (ipwf, eng._pwslab),
+                        (jpwf, eng._pwslab)):
+            assert storage(p) == storage(slab)
+
+
+@pytest.mark.parametrize("S", [45, 64])
+@pytest.mark.parametrize("mode", list(KERNEL_MODES))
+def test_b3_engine_mi_equals_k1(mode, S):
+    """B3's mi from the engine's dual arguments is K1's on ``row_args``
+    bit for bit."""
+    eng = engine_for(mode, S)
+    for i0 in (0, 128):
+        mi, wog = mi_tile_dual(*eng.row_dual_args(i0))
+        assert torch.equal(mi, mi_tile_single(*eng.row_args(i0)))
+        assert not torch.equal(mi, wog)
+
+
+@pytest.mark.parametrize("mode", list(KERNEL_MODES))
+def test_full_wog_sweep_matches_jax_with_a_sample_tail(mode):
+    """The exact-wog sweep through B3's K-major arguments at a second
+    shape, 45 samples (no multiple of the 16-byte row pad) by 400 columns
+    (four block-rows of 128), against the JAX engine's wog_fetch="full"
+    sweep."""
+    port = engine_for(mode, 45, n_loci=400, seed=13, wog_fetch="full")
+    ref = JaxEngine(port.alignment, JaxConfig(tile=128, use_pallas="on", wog_fetch="full",
+                                              mxu_int8=KERNEL_MODES[mode][0]))
+    assert ref.statics.int8_mode == port.statics.int8_mode
+    assert_full_sweeps_agree(port, ref)
 
 
 def test_wog_fetch_is_validated():

@@ -23,6 +23,7 @@ from spydrpick_torch.engine.solver import (
     build_device_data,
     device_data_from_jax,
 )
+from spydrpick_torch.ops.mi_kernels import split_bf16
 
 from tests.conftest import random_alignment
 
@@ -186,21 +187,33 @@ def test_aracne_copy_equals_reference():
 @pytest.mark.parametrize("mxu_int8,unit", [("auto", True), ("auto", False), ("off", False)])
 def test_engine_k_major_operands_equal_the_sample_major_ones(mxu_int8, unit):
     """The engine's K-major copy is the transpose of its slab one-hot with
-    zero pad rows, and a block-row's K1 operands (``row_args``, views of
-    K-major tensors) hold the values of B3's sample-major ones."""
+    zero pad rows, and a block-row's K1 and B3 operands (``row_args``,
+    ``row_dual_args``: views of K-major tensors) hold the values of the
+    sample-major operands built from the one-hot."""
     al = random_alignment(n_samples=45, n_loci=300, seed=8, gap_frac=0.1)
     if unit:
         al.weights = None
     eng = MIEngine(al, EngineConfig(tile=128, mxu_int8=mxu_int8), device="cpu")
-    oh, ohk = eng.data.onehot, eng._onehot_k
+    st, oh, ohk, w = eng.statics, eng.data.onehot, eng._onehot_k, eng.data.weights
     assert torch.equal(ohk[:, :45], oh.T) and not ohk[:, 45:].any()
     assert ohk.shape[1] % (16 // oh.element_size()) == 0
     for i0 in (0, 128):
+        xi = oh[:, i0 * 5:(i0 + 128) * 5]
+        if st.int8_mode == "unit":
+            want = (xi, None)
+        elif st.int8_mode == "fixed14":
+            w_q = torch.clamp(torch.round(w * torch.tensor(st.int8_scale, dtype=torch.float32)),
+                              0, 16383).to(torch.int32)
+            want = tuple((xi.to(torch.int32) * d[:, None]).to(torch.int8)
+                         for d in (w_q // 128, w_q % 128))
+        else:
+            want = split_bf16(xi.to(torch.float32) * w[:, None])
         k = eng.row_args(i0)
         s = eng.row_dual_args(i0)
-        for a, b in zip(k[:3], s[:3]):
-            assert (a is None) == (b is None)
+        for a, b, c in zip(k[:3], s[:3], want + (oh[:, i0 * 5:],)):
+            assert (a is None) == (b is None) == (c is None)
             if a is not None:
-                assert a.stride(0) == 1 and torch.equal(a, b)
+                assert a.stride(0) == 1 and b.stride(0) == 1
+                assert torch.equal(a, c) and torch.equal(b, c)
         assert all(torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
                    for x, y in zip(k[3:], s[3:5] + s[7:]))

@@ -156,10 +156,10 @@ def wog_presence(pf):
 
 
 def assert_b3_matches(args, single_args):
-    """B3 against its plain version (mi and wog within TOL) and its mi
-    against K1's on the same operands: bit for bit in the int8 modes, within
-    TOL in bf16, where K1's tensor cores sum in another order than B3's
-    scalar loop."""
+    """B3 against its plain version (mi and wog within TOL), its mi against
+    K1's on the same operands bit for bit in every mode (one main loop,
+    conversion and epilogue), and in the int8 modes its (mi, wog) against
+    B4 -> convert -> B5 bit for bit."""
     launches = mi_tile_dual.launches
     mi, wog = mi_tile_dual(*args)
     want_mi, want_wog = mi_tile_dual_plain(*args)
@@ -169,10 +169,12 @@ def assert_b3_matches(args, single_args):
     assert bool(torch.isfinite(mi).all()) and bool(torch.isfinite(wog).all())
     assert float((mi - want_mi).abs().max()) <= TOL
     assert float((wog - want_wog).abs().max()) <= TOL
+    assert torch.equal(mi, k1)
     if args[0].dtype == torch.int8:
-        assert torch.equal(mi, k1)
-    else:
-        assert float((mi - k1).abs().max()) <= TOL
+        xi_hi, xi_lo, xj, ipf, jpf, ipwf, jpwf, pc, bw, mults, scale = args
+        C = xtab_to_f32(crosstab_tile(xi_hi, xi_lo, xj, bw, mults), scale)
+        split = mi_epilogue(C, ipf, jpf, ipwf, jpwf, pc, bw)
+        assert torch.equal(mi, split[0]) and torch.equal(wog, split[1])
     assert not torch.equal(mi, wog)  # the operands have gaps
 
 
@@ -188,15 +190,17 @@ def test_cuda_b3_matches_plain_and_k1(cuda_device, mode):
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", ["unit", "fixed14", "off"])
 def test_cuda_b3_engine_row_args(cuda_device, mode):
-    """B3 on the engine's own dual block-row arguments: strided column
-    views, TJ = Lp - i0 and a sample tail (S = 200)."""
+    """B3 on the engine's own dual block-row arguments: K-major views of
+    the engine's copy of the one-hot, TJ = Lp - i0 and a sample tail
+    (S = 200)."""
     al = alignment(200, 1500, unit=mode == "unit")
     cfg = EngineConfig(tile=256, mxu_int8="off" if mode == "off" else "auto")
     eng = MIEngine(al, cfg, device=cuda_device)
     assert eng.statics.int8_mode == mode
     for i0 in (0, 768):
         args = eng.row_dual_args(i0)
-        assert args[2].stride(0) == eng.Lp * 5 and args[2].shape[1] == (eng.Lp - i0) * 5
+        assert args[2].stride() == (1, eng._onehot_k.shape[1])
+        assert args[2].shape[1] == (eng.Lp - i0) * 5
         assert_b3_matches(args, eng.row_args(i0))
 
 

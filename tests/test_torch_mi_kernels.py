@@ -15,6 +15,7 @@ import torch
 from spydrpick_tpu.core.alphabet import N_STATES
 from spydrpick_tpu.ops import mi_pallas
 from spydrpick_tpu.ops.reference import crosstab_pair, mi_single
+from spydrpick_torch import sass_compare
 from spydrpick_torch.ops import mi_kernels
 from spydrpick_torch.ops.mi_kernels import BW, mi_tile_single
 
@@ -158,12 +159,71 @@ def test_plain_versions_take_k_major_operands(mode):
                        mi_kernels.crosstab_tile(hi, lo, xj, BW, mults))
 
 
+@pytest.mark.parametrize("S", [45, 64])
+@pytest.mark.parametrize("mode", ["fixed14", "unit", "bf16"])
+def test_b3_takes_either_layout(mode, S):
+    """B3 (``mi_tile_dual``) gives the same (mi, wog) bit for bit for K-major
+    views, as the engine hands them over, and for sample-major operands."""
+    al, (hi, lo, xj, ipf, jpf, mults, scale) = operands(mode, S, 128, 256, seed=S)
+    pw = to_torch(mi_pallas.to_slab(al.state_presence_wo_gaps.astype(np.float32).reshape(-1), BW))
+    hi, xj, ipf, jpf = to_torch(hi), to_torch(xj), to_torch(ipf), to_torch(jpf)
+    lo = None if lo is None else to_torch(lo)
+    kview = lambda x: None if x is None else mi_kernels.k_major(x)[:, :x.shape[0]].T
+    rest = (ipf, jpf, pw[:128 * N_STATES], pw, 0.5, BW, mults, scale)
+    mi, wog = mi_kernels.mi_tile_dual(kview(hi), kview(lo), kview(xj), *rest)
+    want_mi, want_wog = mi_kernels.mi_tile_dual(hi, lo, xj, *rest)
+    assert torch.equal(mi, want_mi) and torch.equal(wog, want_wog)
+    assert not torch.equal(mi, wog)  # the columns have gaps
+
+
+@pytest.mark.parametrize("case", ["bw", "m1", "meta"])
+def test_b3_refuses_what_the_tensor_core_loop_cannot_run(case):
+    """B3 takes K1's operand rules: 32-column tiles and, for two int8
+    passes, m1 dividing m0; a tensor on another device than the CPU or a
+    GPU raises rather than falling back to the plain version."""
+    dev = "meta" if case == "meta" else "cpu"
+    x = torch.zeros((64, 2 * BW * N_STATES), dtype=torch.int8, device=dev)
+    p = torch.zeros(2 * BW * N_STATES, device=dev)
+    if case == "meta":
+        with pytest.raises(ValueError, match="unsupported device"):
+            mi_kernels.mi_tile_dual(x, x, x, p, p, p, p, 0.5, BW, (128, 1), 1.0)
+        return
+    check = lambda lo, bw, mults: mi_kernels._check_operands(
+        "mi_tile_dual", x, lo, x, ((p, p), (p, p)), bw, mults)
+    bad = (None, 16, (1,)) if case == "bw" else (x, 32, (128, 3))
+    check(bad[0], 32, (128, 1) if bad[0] is not None else (1,))  # the rules met: accepted
+    with pytest.raises(ValueError, match="bw % 32" if case == "bw" else "m1 dividing m0"):
+        check(*bad)
+
+
+def test_sass_listing_pairs_kernels_across_builds():
+    """``sass_compare`` reads cuobjdump's listing into kernels named
+    without the anonymous namespace's per-file hash, so the kernels of two
+    builds of one file pair up, and their instruction lines (with their
+    encodings) tell whether the code changed."""
+    def listing(file_hash, op):
+        return ("\n\tcode for sm_90a\n\t\tFunction : _ZN44_GLOBAL__N__" + file_hash
+                + "_11_xtab_mma_cu_8ac9ee7818mi_tile_mma_kernelIaEEvPKT_\n"
+                '\t.headerflags\t@"EF_CUDA_SM90"\n'
+                "        /*0000*/    LDC R1, c[0x0][0x28] ;    /* 0x00000a00ff017b82 */\n"
+                "                                              /* 0x000e700000000800 */\n"
+                f"        /*0010*/    {op} ;    /* 0x0000000000137919 */\n")
+
+    a = sass_compare.sass_functions(listing("afdd503b", "S2R R19, SR_TID.X"))
+    b = sass_compare.sass_functions(listing("31c813b1", "S2R R19, SR_TID.X"))
+    c = sass_compare.sass_functions(listing("31c813b1", "S2R R13, SR_TID.X"))
+    name = "_ZN44_GLOBAL__N__11_xtab_mma_cu_8ac9ee7818mi_tile_mma_kernelIaEEvPKT_"
+    assert list(a) == list(b) == list(c) == [name]
+    assert len(a[name]) == 2 and a == b and a != c
+
+
 def test_k1_b4_refuse_what_the_tensor_core_loop_cannot_run():
-    """Off the CPU, K1 and B4 take either layout, but need 32-column tiles
-    and, for two int8 passes, m1 dividing m0 (acc = (m0 / m1) * P0 + P1)."""
+    """Off the CPU, K1, B3 and B4 take either layout, but need 32-column
+    tiles and, for two int8 passes, m1 dividing m0 (acc = (m0 / m1) * P0 +
+    P1); an operand with neither a unit row nor a unit column stride is
+    refused."""
     x = torch.zeros((64, 2 * 32 * N_STATES), dtype=torch.int8)
-    check = lambda lo, bw, mults: mi_kernels._check_operands("k1", x, lo, x, (), bw, mults,
-                                                             k_major_ok=True)
+    check = lambda lo, bw, mults: mi_kernels._check_operands("k1", x, lo, x, (), bw, mults)
     check(x, 32, (128, 1))
     check(None, 64, (1,))
     with pytest.raises(ValueError, match="m1 dividing m0"):
@@ -171,6 +231,7 @@ def test_k1_b4_refuse_what_the_tensor_core_loop_cannot_run():
     with pytest.raises(ValueError, match="bw % 32"):
         check(None, 16, (1,))
     xt = mi_kernels.k_major(x)[:, :64].T
-    with pytest.raises(ValueError, match="unit column stride"):
-        mi_kernels._check_operands("b3", xt, None, xt, (), 16, (1,))
-    mi_kernels._check_operands("k1", xt, None, xt, (), 32, (1,), k_major_ok=True)
+    mi_kernels._check_operands("k1", xt, None, xt, (), 32, (1,))
+    strided = torch.zeros((64, 4 * 32 * N_STATES), dtype=torch.int8)[:, ::2]
+    with pytest.raises(ValueError, match="unit column stride or unit row stride"):
+        mi_kernels._check_operands("k1", strided, None, xt, (), 32, (1,))
