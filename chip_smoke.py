@@ -37,50 +37,59 @@ Phases (each raises on failure; nothing is caught):
         bit in the int8 modes; B4, B5 and plain times beside K1's, their
         bounds and roofline shares, and B4's yardstick (``b4_library``:
         one PyTorch product per pass, which the port never calls);
-  3. kernel K2 (row compaction) against its plain version at (512, 30720)
-     and mask densities 0, 1%, 30%, 100%, with and without wog: counts and
-     compacted prefixes exactly equal, with both times;
+  3. kernel B2 (row_select: threshold, colmax and append to the device
+     edge store in one pass) against its plain version: on random
+     (512, 30720) block-rows at densities 0, 1%, 30% and 100%, lazy and
+     with wog, an LD gate and a circular genome, and on the engine's own
+     block-rows at i0 = 0 and 15360 of the bench alignment (lazy: K1's
+     buffer; wog: B3's) at the tournament's threshold; the count, the
+     edges sorted by (i, j) and colmax's bits exactly equal, with both
+     times, B2's bound and share; a 1000-slot store (the count still
+     counts every edge, the slots written are plain's edges) and a lazy
+     sweep from a 2^18-slot store that must grow (arrays equal to the
+     default store's sweep, rows swept again);
   4. slice parity: the engine's sweep of a weighted S=256 x L=2048
      alignment on the card against the same engine on the CPU;
   5. the main path at the size users run it: ``spydrpick_torch.cli.main``
      on the weighted S=3000 x L=30720 alignment (the bench.py "medium"
-     generator) with the automatic threshold; K1 and K2 must have been
-     launched by it;
+     generator) with the automatic threshold; K1 and B2 must each have
+     been launched once per block-row (60);
   6. the library's exact-wog sweep at that size:
      ``MIEngine(al, EngineConfig(wog_fetch="full")).sweep(thr)`` at phase
-     5's threshold launches B3 once per block-row (60) and K1 never; its
-     edges, mi and colmax equal the lazy sweep's bit for bit, the lazy
-     sweep's outlier candidates (wog from the pairs path) agree within
-     1e-5, and edges whose columns have no gaps carry wog == mi; both
-     sweeps' times and peak device memory;
+     5's threshold launches B3 and B2 once per block-row (60) and K1
+     never; its edges, mi and colmax equal the lazy sweep's bit for bit,
+     the lazy sweep's outlier candidates (wog from the pairs path) agree
+     within 1e-5, and edges whose columns have no gaps carry wog == mi;
+     both sweeps' times and peak device memory;
   7. checkpoint and resume at that size: a checkpointed sweep of the
      engine ``run_pipeline`` builds is killed from its progress callback
      after block-row 24; ``cli.main`` with phase 5's flags plus
-     ``--checkpoint`` resumes it, launching K1 once per row not in the
-     snapshot, deletes the file and writes outputs byte-identical to
+     ``--checkpoint`` resumes it, launching K1 and B2 once per row not in
+     the snapshot, deletes the file and writes outputs byte-identical to
      phase 5's; an uninterrupted ``--checkpoint`` run shows the cost of
      the saves;
   8. the row-sharded CLI: two processes on the one card, joined by the
      multi-host flags (gloo, since they share it), run phase 5's flags
      with ``--sharded``; rank 0's outputs are byte-identical to phase 5's
-     and the ranks' K1 launches sum to one per block-row (60), with no B4
-     or B5;
+     and the ranks' K1 and B2 launches each sum to one per block-row
+     (60), with no B4 or B5;
   9. the sample-sharded CLI: ``--sharded --sample-shards 2``, two ranks of
      1500 samples each, on the weighted S=3000 x L=16384 bench alignment
      (a cut: every block-row's crosstable crosses the host through gloo),
      once with ``--mi-threshold`` set to the single-process tournament's
      threshold and once with the sharded tournament; both byte-identical
      to the single-process run, and each rank launches B4 and B5 once per
-     8192-column chunk of each block-row (48 for 32 block-rows), K2 once
+     8192-column chunk of each block-row (48 for 32 block-rows), B2 once
      per block-row, and K1 and B3 never.
 Ranks of phases 8 and 9 are this script run as ``chip_smoke.py --rank
 ARGS``: ``cli.main(ARGS)``, then the launch counts as a JSON line; each
 has a time limit, and a rank that fails fails the phase.
 The line before the last is a JSON object with each kernel's route,
-source, launches in its main-path phase (5 for K1 and K2, 6 for B3, 9 for
+source, launches in its main-path phase (5 for K1 and B2, 6 for B3, 9 for
 B4 and B5, summed over the ranks), max error over phases 2-3, 6 and 2d,
-times at the main path's shape (the fixed14 block-row at i0=0; K2 at 1%
-density), the bound computed from those inputs and what sets it, and the
+times at the main path's shape (the fixed14 block-row at i0=0; for B2 the
+lazy block-row at i0=0 and the tournament's threshold), the bound
+computed from those inputs and what sets it, and the
 library call's time where one PyTorch call computes the same function
 (B4), else null; the last line is ``{"ok": true, "device": {...}}``.
 Without a GPU it exits with an error before printing any result.
@@ -119,12 +128,18 @@ def main_flags(fasta, wfile):
     return [fasta, "--sample-weights", wfile, "--seed", "1", "-v"]
 
 
+LEAD_CYCLES = 40_000_000  # a spin of ~20 ms on the card ahead of a timed window
+
+
 def cuda_time_ms(fn, n: int) -> float:
     """Mean milliseconds per call of ``fn`` over ``n`` calls after one
-    warm-up call, by CUDA events."""
+    warm-up call, by CUDA events.  A spin kernel ahead of the window lets
+    the host queue the calls before the card reaches them, so a kernel
+    shorter than its host-side launch is timed on the card, not the host."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(LEAD_CYCLES)
     start.record()
     for _ in range(n):
         fn()
@@ -233,7 +248,7 @@ def phase_env():
         # a mangled template instance: ...mi_epilogue_kernelILb1EE... is
         # <1>, ...mi_tile_mma_kernelIaE... <int8>, ...I13__nv_bfloat16E... <bf16>
         m = re.search(r"entry function '\w*?((?:mi_tile|mi_tile_dual|crosstab)_mma_kernel"
-                      r"|route_rows_kernel|mi_epilogue_kernel)(?:I(\w+?)E+|E)v", line)
+                      r"|row_select_kernel|mi_epilogue_kernel)(?:I(\w+?)E+|E)v", line)
         if m:
             targs = m.group(2) or ""
             args = re.findall(r"L[ib](\d+)E", targs + "E") or (
@@ -598,43 +613,147 @@ def phase_k1_main(dev, fasta, wfile):
     return worst, main, b3_worst, b3, split_err, split_ms
 
 
-def phase_k2(dev, R=512, W=30720):
-    from spydrpick_torch.ops.compact import route_rows, route_rows_plain
+def select_bound(T, W, n_edges, with_wog):
+    """B2's bound: the (T, W) row buffer (and wog) read once, orig_pos (and
+    gap) of its rows and columns read once, colmax over its columns read
+    and written once, each survivor written once as (i, j, mi[, wog]);
+    one compare per element at the f32 peak."""
+    nbytes = (T * W * 4 * (2 if with_wog else 1) + (T + W) * (5 if with_wog else 4)
+              + 2 * W * 4 + n_edges * (16 if with_wog else 12))
+    return bound(T * W, "f32", nbytes)
+
+
+def select_run(fn, mi, wog, args, colmax, kw, capacity):
+    """``fn`` (row_select or its plain version) into a fresh store: its
+    count, its edges sorted by (i, j) and the colmax it leaves."""
+    from spydrpick_torch.ops.compact import EdgeStore
+
+    store = EdgeStore(capacity, wog is not None, mi.device)
+    colmax = colmax.clone()
+    fn(mi, wog, *args, colmax, store, **kw)
+    n = min(int(store.count), capacity)
+    got = [a[:n] for a in store.arrays()]
+    order = torch.argsort(got[0].to(torch.int64) * colmax.shape[0] + got[1])
+    return int(store.count), [a[order] for a in got], colmax
+
+
+def select_compare(label, mi, wog, args, colmax, kw, n_time, n_plain):
+    """B2 against its plain version on one block-row: the count, the edges
+    sorted by (i, j) (ipos, jpos, mi and wog exactly) and colmax's bits
+    must be equal.  Returns (max |d|, count, ms, plain ms, bound)."""
+    from spydrpick_torch.ops.compact import EdgeStore, row_select, row_select_plain
+
+    n, got, cm = select_run(row_select, mi, wog, args, colmax, kw, 1 << 24)
+    want_n, want, want_cm = select_run(row_select_plain, mi, wog, args, colmax, kw, 1 << 24)
+    torch.cuda.synchronize()
+    if n != want_n or not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"B2 {label}: {n} edges vs plain {want_n}, or they differ")
+    if not torch.equal(cm.view(torch.int32), want_cm.view(torch.int32)):
+        raise AssertionError(f"B2 {label}: colmax bits differ from the plain version's")
+    err = max([float((a.double() - b.double()).abs().max()) for a, b in zip(got, want) if n]
+              + [0.0])
+    del got, want
+    # every timed call appends to one store that holds them all; colmax
+    # holds the row's maxima after the first call, so later calls make no
+    # colmax atomics (stage_profile times the sweep's own launches)
+    times = []
+    for fn, reps in ((row_select, n_time), (row_select_plain, n_plain)):
+        store = EdgeStore(max(1, (reps + 2) * n), wog is not None, mi.device)
+        run_cm = colmax.clone()
+        times.append(cuda_time_ms(lambda: fn(mi, wog, *args, run_cm, store, **kw), reps))
+        del store
+    T, W = mi.shape
+    return err, n, times[0], times[1], select_bound(T, W, n, wog is not None)
+
+
+def print_select(label, n, ms, plain_ms, b2_bound):
+    print(f"# B2 {label}: {n} edges, sorted edges and colmax bits equal to plain; kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.3f} ms; {share(ms, b2_bound[0])}", flush=True)
+
+
+def random_select_case(dev, rng, density, with_wog, T=TILE, Lp=L_BENCH, L=L_BENCH - 20):
+    """Block-row i0 = 0 of random MI in [-0.25, 1) at a threshold that keeps
+    ``density`` of it, gaps, a circular genome with an LD gate and a
+    colmax that already holds values (some -inf)."""
+    t = lambda x: torch.from_numpy(x).to(dev)
+    mi = t((rng.random((T, Lp)) * 1.25 - 0.25).astype(np.float32))
+    wog = t(rng.random((T, Lp)).astype(np.float32)) if with_wog else None
+    colmax = rng.random(Lp).astype(np.float32) * 0.9
+    colmax[rng.random(Lp) < 0.3] = -np.inf
+    genome = 2 * Lp
+    thr = -np.inf if density == 1.0 else 1.0 - 1.25 * density
+    args = (t(rng.random(Lp) < 0.3), t(np.sort(rng.choice(genome, Lp, replace=False))
+                                         .astype(np.int32)))
+    return mi, wog, args, t(colmax), dict(i0=0, n_loci=L, threshold=thr, ld_threshold=500,
+                                          linear_genome=False, genome_size=genome)
+
+
+def phase_b2(dev, fasta, wfile):
+    """B2 (row_select) against its plain version on random block-rows and
+    on the engine's own, a store that overflows, and a sweep whose store
+    must grow."""
+    import dataclasses
+
+    from spydrpick_torch.engine.solver import EngineConfig, MIEngine
+    from spydrpick_torch.ops.compact import row_select, row_select_plain
 
     rng = np.random.default_rng(2)
-    main = {}
     worst = 0.0
     for density in (0.0, 0.01, 0.3, 1.0):
         for with_wog in (False, True):
-            mask = torch.from_numpy(rng.random((R, W)) < density).to(dev)
-            mi = torch.from_numpy(rng.random((R, W)).astype(np.float32)).to(dev)
-            wog = torch.from_numpy(rng.random((R, W)).astype(np.float32)).to(dev) if with_wog else None
-            got = route_rows(mask, mi, wog)
-            want = route_rows_plain(mask, mi, wog)
-            torch.cuda.synchronize()
-            if not torch.equal(got[3], want[3]):
-                raise AssertionError(f"K2 density={density}: counts differ")
-            lane = torch.arange(W, device=dev)[None, :] < want[3][:, None]
-            for name, a, b in zip(("mi", "j", "wog"), got[:3], want[:3]):
-                if b is None:
-                    continue
-                if not torch.equal(a[lane], b[lane]):
-                    raise AssertionError(f"K2 density={density} wog={with_wog}: {name} differs")
-                if lane.any():
-                    d = (a[lane].to(torch.float64) - b[lane].to(torch.float64)).abs().max()
-                    worst = max(worst, float(d))
-            ms = cuda_time_ms(lambda: route_rows(mask, mi, wog), 10)
-            plain_ms = cuda_time_ms(lambda: route_rows_plain(mask, mi, wog), 3)
-            # mask and payloads read once; counts and the kept prefixes
-            # (mi, j, wog) written once; one scan step per mask element
-            kept, payload = int(want[3].sum()), 2 if wog is None else 3
-            bound_ms, bound_by = bound(R * W, "f32", R * W * (1 + 4 * (payload - 1)) + R * 4
-                                       + kept * 4 * payload)
-            print(f"# K2 density={density:<4} wog={with_wog!s:5}: exact; kernel {ms:.3f} ms, "
-                  f"plain {plain_ms:.3f} ms; {share(ms, bound_ms)}", flush=True)
-            if density == 0.01 and not with_wog:
-                main = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by, "library_ms": None}
+            mi, wog, args, colmax, kw = random_select_case(dev, rng, density, with_wog)
+            err, n, ms, plain_ms, b2_bound = select_compare(
+                f"random density {density}", mi, wog, args, colmax, kw, 10, 3)
+            worst = max(worst, err)
+            print_select(f"random {tuple(mi.shape)} density={density:<4} wog={with_wog!s:5} "
+                         "LD 500 circular", n, ms, plain_ms, b2_bound)
+            del mi, wog, args, colmax
+            torch.cuda.empty_cache()
+    mi, wog, args, colmax, kw = random_select_case(dev, rng, 0.01, True)
+    n, got, _ = select_run(row_select, mi, wog, args, colmax, kw, 1000)
+    want_n, want, _ = select_run(row_select_plain, mi, wog, args, colmax, kw, 1 << 24)
+    keys = lambda e: set(zip(*(x.tolist() for x in e)))
+    if n != want_n or len(got[0]) != 1000 or not keys(got) <= keys(want):
+        raise AssertionError(f"B2 overflow: count {n} vs plain {want_n}, or the 1000 slots "
+                             "written are not plain's edges")
+    print(f"# B2 store of 1000 slots: count {n} = plain's, 1000 slots written, each one of "
+          "plain's edges", flush=True)
+    del mi, wog, args, colmax, got, want
+    al, lazy, thr = pipeline_engine(dev, fasta, wfile)
+    full = MIEngine(al, EngineConfig(wog_fetch="full"), device=dev)
+    main = {}
+    for eng, name in ((lazy, "lazy"), (full, "wog")):
+        d, st = eng.data, eng.statics
+        for i0 in (0, (eng.Lp // 2) // eng.tile * eng.tile):
+            mi, wog = eng.row_buffers(i0)
+            colmax = torch.full((eng.Lp,), -np.inf, dtype=torch.float32, device=dev)
+            kw = dict(i0=i0, n_loci=st.L, threshold=thr, ld_threshold=st.ld_threshold,
+                      linear_genome=st.linear_genome, genome_size=st.genome_size)
+            err, n, ms, plain_ms, b2_bound = select_compare(
+                f"main path {name} i0={i0}", mi, wog, (d.gap, d.orig_pos), colmax, kw, 10, 3)
+            worst = max(worst, err)
+            print_select(f"main path {name} S={eng.S} i0={i0:5d} ({mi.shape[0]}, {mi.shape[1]})",
+                         n, ms, plain_ms, b2_bound)
+            if name == "lazy" and i0 == 0:
+                main = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b2_bound[0],
+                        "bound_by": b2_bound[1], "library_ms": None}
+            del mi, wog
+    del full
+    torch.cuda.empty_cache()
+    want = lazy.sweep(thr)
+    small = MIEngine(al, dataclasses.replace(lazy.config, store_capacity=1 << 18), device=dev)
+    del lazy
+    launches = row_select.launches
+    tm = {}
+    got = small.sweep(thr, timings=tm)
+    for f in ("ipos", "jpos", "mi", "mi_wog", "colmax"):
+        if not np.array_equal(getattr(got, f), getattr(want, f)):
+            raise AssertionError(f"B2 sweep with a 2^18-slot store: {f} differs")
+    if not tm["rerun_rows"]:
+        raise AssertionError("B2 sweep with a 2^18-slot store swept no row again")
+    print(f"# B2 lazy sweep from a 2^18-slot store: {got.n_edges} edges, arrays equal to the "
+          f"default store's; {tm['rerun_rows']} block-rows swept again, "
+          f"{row_select.launches - launches} row_select launches", flush=True)
     return worst, main
 
 
@@ -679,28 +798,30 @@ def phase_parity(dev, td, S=256, L=2048):
 
 def phase_main(dev, td, fasta, wfile, S=S_BENCH, L=L_BENCH):
     from spydrpick_torch import cli
-    from spydrpick_torch.ops.compact import route_rows
+    from spydrpick_torch.ops.compact import row_select
     from spydrpick_torch.ops.mi_kernels import mi_tile_single
 
     out_dir = os.path.join(td, "out")
     torch.cuda.reset_peak_memory_stats(dev)
     mi_tile_single.launches = 0
-    route_rows.launches = 0
+    row_select.launches = 0
     log = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(log):
         rc = cli.main(main_flags(fasta, wfile) + ["--output-dir", out_dir])
     wall = time.perf_counter() - t0
-    launches = {"mi_tile_single": mi_tile_single.launches, "route_rows": route_rows.launches}
+    launches = {"mi_tile_single": mi_tile_single.launches, "row_select": row_select.launches}
     text = log.getvalue()
     if rc != 0:
         raise AssertionError(f"cli.main returned {rc}:\n{text[-4000:]}")
     mode = re.search(r"int8 mode (\w+)", text).group(1)
     if mode != "fixed14":
         raise AssertionError(f"main path ran int8 mode {mode}, not fixed14")
+    n_rows = -(-L // TILE)
     for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"main path never launched kernel {name}")
+        if n != n_rows:
+            raise AssertionError(f"main path launched kernel {name} {n} times, not once per "
+                                 f"block-row ({n_rows})")
     files = sorted(os.listdir(out_dir))
     couplings = [f for f in files if re.search(r"spydrpick_couplings\.1-based\.\d+edges$", f)]
     outliers = [f for f in files if f.endswith(".outliers")]
@@ -756,7 +877,7 @@ def phase_dual_sweep(dev, fasta, wfile, L=L_BENCH):
     """The library's exact-wog sweep (B3) against the pipeline's lazy one."""
     from spydrpick_torch.engine.outliers import outlier_thresholds
     from spydrpick_torch.engine.solver import EngineConfig, MIEngine
-    from spydrpick_torch.ops.compact import route_rows
+    from spydrpick_torch.ops.compact import row_select
     from spydrpick_torch.ops.mi_kernels import mi_tile_dual, mi_tile_single
 
     al, lazy_engine, thr = pipeline_engine(dev, fasta, wfile)
@@ -766,13 +887,15 @@ def phase_dual_sweep(dev, fasta, wfile, L=L_BENCH):
     engine = MIEngine(al, EngineConfig(wog_fetch="full"), device=dev)
     if engine.statics.int8_mode != "fixed14" or engine.statics.wog_lazy:
         raise AssertionError(f"dual sweep engine runs {engine.statics}")
-    mi_tile_single.launches = mi_tile_dual.launches = route_rows.launches = 0
+    mi_tile_single.launches = mi_tile_dual.launches = row_select.launches = 0
     full, full_s, full_gib = timed_sweep(engine, thr)
     launches = {"mi_tile_single": mi_tile_single.launches, "mi_tile_dual": mi_tile_dual.launches,
-                "route_rows": route_rows.launches}
+                "row_select": row_select.launches}
     n_rows = -(-L // TILE)
-    if launches["mi_tile_dual"] != n_rows or launches["mi_tile_single"] != 0:
-        raise AssertionError(f"dual sweep launches {launches}, expected {n_rows} B3 and no K1")
+    if (launches["mi_tile_dual"] != n_rows or launches["row_select"] != n_rows
+            or launches["mi_tile_single"] != 0):
+        raise AssertionError(f"dual sweep launches {launches}, expected {n_rows} B3 and B2 "
+                             "and no K1")
     for f in ("ipos", "jpos", "mi", "colmax"):
         if not np.array_equal(getattr(lazy, f), getattr(full, f)):
             raise AssertionError(f"dual sweep: {f} differs from the lazy sweep's")
@@ -797,17 +920,17 @@ def phase_dual_sweep(dev, fasta, wfile, L=L_BENCH):
 
 def cli_run(args, label):
     """``cli.main(args)`` with its stdout captured; returns the log and
-    the K1/B3/K2 launches it made."""
+    the K1/B3/B2 launches it made."""
     from spydrpick_torch import cli
-    from spydrpick_torch.ops.compact import route_rows
+    from spydrpick_torch.ops.compact import row_select
     from spydrpick_torch.ops.mi_kernels import mi_tile_dual, mi_tile_single
 
-    mi_tile_single.launches = mi_tile_dual.launches = route_rows.launches = 0
+    mi_tile_single.launches = mi_tile_dual.launches = row_select.launches = 0
     log = io.StringIO()
     with contextlib.redirect_stdout(log):
         rc = cli.main(args)
     launches = {"mi_tile_single": mi_tile_single.launches, "mi_tile_dual": mi_tile_dual.launches,
-                "route_rows": route_rows.launches}
+                "row_select": row_select.launches}
     text = log.getvalue()
     if rc != 0:
         raise AssertionError(f"{label}: cli.main returned {rc}:\n{text[-4000:]}")
@@ -861,8 +984,10 @@ def phase_checkpoint(dev, td, fasta, wfile, main_out, main_sweep_s, L=L_BENCH,
     out = os.path.join(td, "resumed")
     text, launches = cli_run(main_flags(fasta, wfile) + ["--checkpoint", path,
                                                          "--output-dir", out], "resume")
-    if launches["mi_tile_single"] != n_rows - n_done or launches["mi_tile_dual"] != 0:
-        raise AssertionError(f"resumed run launches {launches}, expected {n_rows - n_done} K1")
+    if (launches["mi_tile_single"] != n_rows - n_done or launches["mi_tile_dual"] != 0
+            or launches["row_select"] != n_rows - n_done):
+        raise AssertionError(f"resumed run launches {launches}, expected {n_rows - n_done} K1 "
+                             "and B2")
     if os.path.exists(path):
         raise AssertionError("the checkpoint file outlived the completed run")
     names = assert_same_outputs(main_out, out, "resumed run")
@@ -882,14 +1007,14 @@ def phase_checkpoint(dev, td, fasta, wfile, main_out, main_sweep_s, L=L_BENCH,
     return launches
 
 
-LAUNCH_COUNTERS = ("mi_tile_single", "mi_tile_dual", "route_rows", "crosstab_tile",
+LAUNCH_COUNTERS = ("mi_tile_single", "mi_tile_dual", "row_select", "crosstab_tile",
                    "mi_epilogue")
 
 
 def counters():
     from spydrpick_torch.ops import compact, mi_kernels
 
-    return {name: getattr(compact if name == "route_rows" else mi_kernels, name)
+    return {name: getattr(compact if name == "row_select" else mi_kernels, name)
             for name in LAUNCH_COUNTERS}
 
 
@@ -956,17 +1081,19 @@ def phase_rows_sharded(td, fasta, wfile, main_out, L=L_BENCH):
     names = assert_same_outputs(main_out, out, "rows-sharded run")
     n_rows = -(-L // TILE)
     k1 = sum(x["mi_tile_single"] for x in launches)
-    if (k1 != n_rows or any(x["crosstab_tile"] or x["mi_epilogue"] or x["mi_tile_dual"]
-                            for x in launches)):
-        raise AssertionError(f"rows-sharded launches {launches}: expected {n_rows} K1 in all")
+    b2 = sum(x["row_select"] for x in launches)
+    if (k1 != n_rows or b2 != n_rows or any(x["crosstab_tile"] or x["mi_epilogue"]
+                                            or x["mi_tile_dual"] for x in launches)):
+        raise AssertionError(f"rows-sharded launches {launches}: expected {n_rows} K1 and B2 "
+                             "in all")
     for r, log in enumerate(logs):
         banner, stages = rank_summary(log)
         if "mesh rows x samples = (2, 1)" not in log:
             raise AssertionError(f"rows-sharded rank {r} did not run a (2, 1) mesh")
         print(f"# rows-sharded rank {r}: {banner}; launches {launches[r]}; stage seconds "
               + ", ".join(f"{k} {v}" for k, v in stages.items()), flush=True)
-    print(f"# rows-sharded S={S_BENCH} L={L}: 2 ranks in {wall:.2f} s, K1 {k1} launches in "
-          f"all, {len(names)} outputs byte-identical to phase 5's", flush=True)
+    print(f"# rows-sharded S={S_BENCH} L={L}: 2 ranks in {wall:.2f} s, K1 {k1} and B2 {b2} "
+          f"launches in all, {len(names)} outputs byte-identical to phase 5's", flush=True)
     return launches
 
 
@@ -1004,9 +1131,9 @@ def phase_samples_sharded(dev, td, S=S_BENCH, L=L_SAMPLE_SHARDED):
         names = assert_same_outputs(single, out, f"samples-sharded run ({label})")
         for r, (log, n) in enumerate(zip(logs, launches)):
             if (n["crosstab_tile"] != n_chunks or n["mi_epilogue"] != n_chunks
-                    or n["route_rows"] != n_rows or n["mi_tile_single"] or n["mi_tile_dual"]):
+                    or n["row_select"] != n_rows or n["mi_tile_single"] or n["mi_tile_dual"]):
                 raise AssertionError(f"samples-sharded rank {r} launches {n}: expected "
-                                     f"{n_chunks} B4 and B5, {n_rows} K2, no K1/B3")
+                                     f"{n_chunks} B4 and B5, {n_rows} B2, no K1/B3")
             if f"{S // 2} sample rows" not in log or "mesh rows x samples = (1, 2)" not in log:
                 raise AssertionError(f"samples-sharded rank {r} did not hold {S // 2} samples "
                                      "on a (1, 2) mesh")
@@ -1043,7 +1170,7 @@ def main() -> int:
         fasta, wfile = write_inputs(td, "bench", codes, w)
         del codes
         k1_main_err, k1, b3_main_err, b3, split_err, split_ms = phase_k1_main(dev, fasta, wfile)
-        k2_err, k2 = phase_k2(dev)
+        b2_err, b2 = phase_b2(dev, fasta, wfile)
         phase_parity(dev, td)
         launches, main_out, main_sweep_s = phase_main(dev, td, fasta, wfile)
         dual_launches, dual_err = phase_dual_sweep(dev, fasta, wfile)
@@ -1056,9 +1183,9 @@ def main() -> int:
         {"name": "mi_tile_single", "route": "cuda", "source": "spydrpick_torch/csrc/xtab_mma.cu",
          "replaces": "spydrpick_tpu/ops/mi_pallas.py:279",
          "launches": launches["mi_tile_single"], "max_abs_err": max(k1_err, k1_main_err), **k1},
-        {"name": "route_rows", "route": "cuda", "source": "spydrpick_torch/csrc/route_rows.cu",
+        {"name": "row_select", "route": "cuda", "source": "spydrpick_torch/csrc/row_select.cu",
          "replaces": "spydrpick_tpu/ops/compact_route.py:111",
-         "launches": launches["route_rows"], "max_abs_err": k2_err, **k2},
+         "launches": launches["row_select"], "max_abs_err": b2_err, **b2},
         {"name": "mi_tile_dual", "route": "cuda", "source": "spydrpick_torch/csrc/xtab_mma.cu",
          "replaces": "spydrpick_tpu/ops/mi_pallas.py:523",
          "launches": dual_launches["mi_tile_dual"],

@@ -6,8 +6,9 @@ defaults and meanings, except:
   * flags that tune the TPU engine and mean nothing on the GPU are
     accepted and ignored, with one verbose line naming those that were set
     (``IGNORED``);
-  * ``--edge-capacity`` is accepted and unused: the sweep sizes each
-    block-row's edge output from its counts, so no row can overflow;
+  * ``--edge-capacity`` is accepted and unused: there is no per-row edge
+    window; ``--store-capacity`` is the initial size of the sweep's device
+    edge store, which grows when a sweep finds more edges;
   * ``--profile-dir`` writes a torch.profiler trace of the sweep;
   * ``--checkpoint`` snapshots are the reference's format, but one written
     by the JAX engine does not resume here (its sample axis is padded, so
@@ -47,7 +48,6 @@ IGNORED = {
     "pipeline_depth": 2,
     "matmul_precision": "high",
     "jax_cache_dir": None,
-    "store_capacity": 1 << 24,
     "edge_capacity": 1 << 19,
 }
 
@@ -122,9 +122,10 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--tile", type=int, default=512,
                    help="columns per sweep block-row (a multiple of 128)")
     g.add_argument("--edge-capacity", type=int, default=1 << 19,
-                   help="accepted, unused: block-row edge outputs are sized from their counts")
+                   help="accepted, unused: the sweep has no per-row edge window")
     g.add_argument("--store-capacity", type=int, default=1 << 24,
-                   help="TPU engine option, ignored here")
+                   help="initial edges of the sweep's device edge store; it grows when a "
+                        "sweep finds more")
     g.add_argument("--onehot-storage", choices=["auto", "dense", "codes"], default="auto",
                    help="alignment residency; auto = dense (codes: not yet ported)")
     g.add_argument("--rows-per-dispatch", type=int, default=8,
@@ -255,6 +256,7 @@ def _run(args) -> int:
         seed=args.seed,
         tile=args.tile,
         mxu_int8=args.mxu_int8,
+        store_capacity=args.store_capacity,
         output_dir=args.output_dir,
         profile_dir=args.profile_dir,
         checkpoint=args.checkpoint,

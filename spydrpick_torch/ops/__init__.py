@@ -1,3 +1,3 @@
-"""MI math and the two CUDA kernels of the main path: the MI tile
-(mi_kernels.py) and the per-row edge compaction (compact.py), each with
+"""MI math and the CUDA kernels: the MI tiles (mi_kernels.py) and the
+per-block-row edge selection into a device store (compact.py), each with
 its plain PyTorch version and launch counter."""

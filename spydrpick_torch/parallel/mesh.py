@@ -8,7 +8,7 @@ r at (r // k, r % k) for k sample shards, the layout of the reference's
   * "rows": each group of the rows axis sweeps its share of the
     block-rows (the balanced interleaving ``balanced_row_order``, rank r
     of the axis taking ``order[r::n_rows]``), with the engine's own
-    per-row steps (MI, colmax, K2 compaction);
+    per-row steps (MI, then ``row_select`` into the rank's edge store);
   * "samples" (k > 1): each rank holds only its contiguous slice of the
     samples (``ShardedEngineView``); a block-row's crosstable is made by
     kernel B4 on the rank's samples, summed over the axis (int32 for the
@@ -16,12 +16,15 @@ r at (r // k, r % k) for k sample shards, the layout of the reference's
     entropy epilogue on it, so the MI equals the single-device kernels'
     bit for bit in the int8 modes (solver.py:540-583 of the reference).
 
-At the end colmax is all-reduced with MAX over "rows" and the edges are
-all-gathered over "rows" (counts first, then payloads padded to the
-largest count, since gloo's all_gather takes equal sizes): every rank
-ends with the same ``EdgeSet``.  The reference's device-resident edge
-stores, epochs, drains and dispatch groups are not ported; each rank
-compacts its rows as the single-device sweep does.
+Each rank sweeps its rows into a device edge store of its own, as the
+single-device sweep does (``MIEngine.sweep_rows``: the count read only at
+checks, overflow re-run); the ranks of a samples group re-run together,
+since their rows' crosstables are collectives.  At the end colmax is
+all-reduced with MAX over "rows" and each rank's store, in its sweep
+order, is all-gathered over "rows" (counts first, then payloads padded
+to the largest count, since gloo's all_gather takes equal sizes): every
+rank ends with the same ``EdgeSet``.  The reference's store epochs,
+drains and dispatch groups are not ported.
 """
 
 from __future__ import annotations
@@ -178,6 +181,9 @@ class ShardedEngineView(MIEngine):
         mi, wog = self._split_row(i0, dual=True)
         return mi, _wog_effective(self.data, self.statics, mi, wog, i0)
 
+    def row_buffers(self, i0: int) -> tuple[torch.Tensor, torch.Tensor | None]:
+        return self._split_row(i0, dual=not self.statics.wog_lazy)
+
 
 def _gather_rows(x: torch.Tensor, counts: list[int], group) -> torch.Tensor:
     """All-gather 1-D tensors of the given per-rank lengths over ``group``,
@@ -207,32 +213,29 @@ def sharded_sweep(engine: MIEngine, threshold: float, mesh: DeviceMesh, progress
     T, L, Lp = st.tile, st.L, st.Lp
     synchronize(dev)
     t0 = time.perf_counter()
-    thr = torch.tensor(threshold, dtype=torch.float32, device=dev)
     colmax = torch.full((Lp,), -np.inf, dtype=torch.float32, device=dev)
     mine = [r * T for r in balanced_row_order(-(-L // T))][mesh.get_local_rank("rows")::n_rows_sh]
-    parts = []
-    for i0 in mine:
-        t_row = time.perf_counter()
-        part = engine.row_edges(i0, thr, colmax)
-        if part is not None:
-            parts.append(part)
-        if progress is not None:
-            progress(i0, min(i0 + T, L), 0 if part is None else len(part[0]),
-                     time.perf_counter() - t_row)
+    agree = None
+    if axis_size(mesh, "samples") > 1:
+        samples_group = mesh.get_group("samples")
+
+        def agree(n: int) -> int:
+            t = torch.tensor([n], dtype=torch.int64, device=dev)
+            dist.all_reduce(t, op=dist.ReduceOp.MAX, group=samples_group)
+            return int(t)
+
+    store = engine.new_store()
+    rerun = engine.sweep_rows(mine, threshold, colmax, store, progress, agree=agree)
     synchronize(dev)
     t1 = time.perf_counter()
     dist.all_reduce(colmax, op=dist.ReduceOp.MAX, group=rows_group)
-    cat = lambda k, dt: (torch.cat([p[k] for p in parts]) if parts
-                         else torch.empty(0, dtype=dt, device=dev))
-    local = [cat(0, torch.int64), cat(1, torch.int64), cat(2, torch.float32)]
-    if not st.wog_lazy:
-        local.append(cat(3, torch.float32))
-    n = torch.tensor([len(local[0])], dtype=torch.int64, device=dev)
+    local = store.ordered(0, store.checked, mine, T, Lp)
+    n = torch.tensor([store.checked], dtype=torch.int64, device=dev)
     ns = [torch.empty_like(n) for _ in range(n_rows_sh)]
     dist.all_gather(ns, n, group=rows_group)
     counts = [int(x) for x in ns]
     got = [_gather_rows(x, counts, rows_group).cpu().numpy() for x in local]
-    s_i, s_j, s_m = got[0], got[1], got[2].astype(np.float64)
+    s_i, s_j, s_m = got[0].astype(np.int64), got[1].astype(np.int64), got[2].astype(np.float64)
     colmax_h = colmax[:L].cpu().numpy().astype(np.float64)
     t2 = time.perf_counter()
     if st.wog_lazy:
@@ -244,4 +247,5 @@ def sharded_sweep(engine: MIEngine, threshold: float, mesh: DeviceMesh, progress
         timings["fetch_s"] = t2 - t1
         timings["wog_s"] = time.perf_counter() - t2
         timings["n_rows"] = len(mine)
+        timings["rerun_rows"] = rerun
     return EdgeSet(ipos=s_i, jpos=s_j, mi=s_m, mi_wog=s_w, colmax=colmax_h)

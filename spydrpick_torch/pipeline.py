@@ -86,6 +86,7 @@ class PipelineOptions:
     seed: int = 42
     tile: int = 512
     mxu_int8: str = "auto"
+    store_capacity: int = 1 << 24       # initial slots of the sweep's device edge store
     output_dir: str = "."
     profile_dir: str | None = None      # torch.profiler trace of the sweep
     checkpoint: str | None = None       # sweep checkpoint file (resume support)
@@ -197,6 +198,7 @@ def engine_config(opts: PipelineOptions) -> EngineConfig:
         ld_threshold=opts.ld_threshold,
         linear_genome=opts.linear_genome,
         wog_fetch="outliers",
+        store_capacity=opts.store_capacity,
     )
 
 

@@ -8,8 +8,11 @@ weights uniform in [0.1, 1), ``numpy.random.default_rng(seed)``), writes
 it as FASTA plus a weights file into a temporary directory, and runs
 ``run_pipeline`` on it ``--runs`` times in one process (the automatic
 threshold, ``--seed 1``), printing each run's stage seconds.  Then it
-traces one more tournament and one more sweep with torch.profiler and
-prints, for each traced region:
+runs two more sweeps of the pipeline's lazy-wog engine and two exact-wog
+sweeps (``wog_fetch="full"``, the library default: B3 instead of K1),
+untraced, printing each one's seconds (``MIEngine.sweep``'s timings) and
+peak device memory, and traces one more tournament, lazy sweep and
+exact-wog sweep with torch.profiler, printing for each traced region:
 
   * wall: the region's own span in the trace (a ``record_function``
     annotation that ends after a device synchronize);
@@ -27,6 +30,7 @@ CUDA device.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -108,6 +112,21 @@ def traced(name: str, fn, trace_dir: str | None) -> dict:
     }
 
 
+def timed_sweep(name: str, engine, thr: float) -> dict:
+    """One untraced ``engine.sweep(thr)``: its wall seconds, its timings
+    and the peak device memory while it ran, in GiB."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tm: dict = {}
+    t0 = time.perf_counter()
+    edges = engine.sweep(thr, timings=tm)
+    return {"sweep": name, "sweep_s": time.perf_counter() - t0, "edges": edges.n_edges,
+            **{k: v for k, v in tm.items() if k != "n_rows"},
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m spydrpick_torch.stage_profile",
                                  description=__doc__.split("\n\n")[0])
@@ -147,12 +166,19 @@ def main(argv=None) -> int:
         engine = MIEngine(al, engine_config(opts))
         top_pairs = default_mi_values(al.n_loci, 0)
         thr = determine_mi_threshold(engine, top_pairs, seed=1)
+        for _ in range(2):
+            print(json.dumps(timed_sweep("lazy", engine, thr)), flush=True)
         t0 = time.perf_counter()
         regions = {
             "tournament": traced("tournament", lambda: determine_mi_threshold(
                 engine, top_pairs, seed=1), args.trace_dir),
             "sweep": traced("sweep", lambda: engine.sweep(thr), args.trace_dir),
         }
+        del engine
+        full = MIEngine(al, dataclasses.replace(engine_config(opts), wog_fetch="full"))
+        for _ in range(2):  # the first also warms B3 up
+            print(json.dumps(timed_sweep("exact_wog", full, thr)), flush=True)
+        regions["sweep_full"] = traced("sweep_full", lambda: full.sweep(thr), args.trace_dir)
         for name, r in regions.items():
             print(json.dumps({"region": name, **r}), flush=True)
         print(f"# traced regions in {time.perf_counter() - t0:.2f} s; "

@@ -13,7 +13,7 @@ import torch
 from spydrpick_torch.core.alignment import Alignment
 from spydrpick_torch.core.weights import sample_match_counts
 from spydrpick_torch.engine.solver import EngineConfig, MIEngine
-from spydrpick_torch.ops.compact import route_rows, route_rows_plain
+from spydrpick_torch.ops.compact import EdgeStore, row_select, row_select_plain
 from spydrpick_torch.ops.mi_kernels import (
     BW,
     crosstab_tile,
@@ -76,21 +76,60 @@ def test_cuda_k1_matches_plain(cuda_device, mode):
     assert float((got - want).abs().max()) <= TOL
 
 
+def select_case(dev, density, with_wog, T=64, i0=128, Lp=3200, L=3100, seed=5):
+    """One block-row for row_select: mi uniform in [-0.25, 1) (negative
+    values too), a threshold that keeps ``density`` of it, gaps, a
+    circular genome of 3000 positions with an LD gate of 40, and a colmax
+    that already holds values (some -inf)."""
+    rng = np.random.default_rng(seed)
+    t = lambda x: torch.from_numpy(x).to(dev)
+    mi = t((rng.random((T, Lp - i0)) * 1.25 - 0.25).astype(np.float32))
+    wog = t(rng.random((T, Lp - i0)).astype(np.float32)) if with_wog else None
+    colmax = rng.random(Lp).astype(np.float32) * 0.9
+    colmax[rng.random(Lp) < 0.3] = -np.inf
+    thr = -np.inf if density == 1.0 else 1.0 - 1.25 * density
+    args = (t(rng.random(Lp) < 0.3), t(rng.permutation(Lp).astype(np.int32) % 3000))
+    return mi, wog, args, t(colmax), thr, dict(i0=i0, n_loci=L, threshold=thr, ld_threshold=40,
+                                                  linear_genome=False, genome_size=3000)
+
+
+def run_select(fn, mi, wog, args, colmax, kw, capacity):
+    """fn's store (count, and its edges sorted by (i, j)) and colmax."""
+    store = EdgeStore(capacity, wog is not None, mi.device)
+    colmax = colmax.clone()
+    fn(mi, wog, *args, colmax, store, **kw)
+    n = min(int(store.count), capacity)
+    got = [a[:n] for a in store.arrays()]
+    order = torch.argsort(got[0].long() * 4096 + got[1])
+    return int(store.count), [a[order] for a in got], colmax
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("with_wog", [False, True])
 @pytest.mark.parametrize("density", [0.0, 0.01, 0.3, 1.0])
-def test_cuda_k2_matches_plain(cuda_device, density, with_wog):
-    rng = np.random.default_rng(5)
-    mask = torch.from_numpy(rng.random((64, 3000)) < density).to(cuda_device)
-    mi = torch.rand(64, 3000, device=cuda_device)
-    wog = torch.rand(64, 3000, device=cuda_device) if with_wog else None
-    launches = route_rows.launches
-    got = route_rows(mask, mi, wog)
-    want = route_rows_plain(mask, mi, wog)
+def test_cuda_row_select_matches_plain(cuda_device, density, with_wog):
+    mi, wog, args, colmax, thr, kw = select_case(cuda_device, density, with_wog)
+    launches = row_select.launches
+    n, got, cm = run_select(row_select, mi, wog, args, colmax, kw, 1 << 18)
+    want_n, want, want_cm = run_select(row_select_plain, mi, wog, args, colmax, kw, 1 << 18)
     torch.cuda.synchronize()
-    assert route_rows.launches == launches + 1
+    assert row_select.launches == launches + 1
+    assert n == want_n and (n > 0) == (density > 0)
     for a, b in zip(got, want):
-        assert (a is None and b is None) or torch.equal(a, b)
+        assert torch.equal(a, b)
+    assert torch.equal(cm.view(torch.int32), want_cm.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_cuda_row_select_counts_past_capacity(cuda_device):
+    """A store of 100 slots: the count is the plain version's, 100 slots
+    are written, each an edge of the plain version's."""
+    mi, wog, args, colmax, thr, kw = select_case(cuda_device, 0.01, True)
+    n, got, _ = run_select(row_select, mi, wog, args, colmax, kw, 100)
+    want_n, want, _ = run_select(row_select_plain, mi, wog, args, colmax, kw, 1 << 18)
+    assert n == want_n > 100 and len(got[0]) == 100
+    keys = lambda e: set(zip(*(x.tolist() for x in e)))
+    assert keys(got) <= keys(want)
 
 
 def alignment(S, L, unit=False, seed=8):
@@ -127,6 +166,22 @@ def test_cuda_sweep_matches_cpu(cuda_device, unit):
     for k in set(ea) & set(eb):
         assert abs(ea[k][0] - eb[k][0]) <= TOL and abs(ea[k][1] - eb[k][1]) <= TOL, k
     np.testing.assert_allclose(a.colmax, b.colmax, rtol=0, atol=TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wog_fetch", ["outliers", "full"])
+def test_cuda_tiny_store_sweep_equals_default(cuda_device, wog_fetch):
+    """A 64-slot store overflows on the card: the sweep grows it, sweeps
+    rows again (more row_select launches than block-rows) and returns the
+    default sweep's arrays element for element."""
+    al = alignment(96, 700)
+    want = MIEngine(al, EngineConfig(tile=256, wog_fetch=wog_fetch), device=cuda_device).sweep(0.05)
+    launches = row_select.launches
+    got = MIEngine(al, EngineConfig(tile=256, wog_fetch=wog_fetch, store_capacity=64),
+                   device=cuda_device).sweep(0.05)
+    assert row_select.launches - launches > 3 and want.n_edges > 1000
+    for f in ("ipos", "jpos", "mi", "mi_wog", "colmax"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f), err_msg=f)
 
 
 @pytest.mark.gpu
