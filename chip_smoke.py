@@ -45,9 +45,12 @@ Phases (each raises on failure; nothing is caught):
      buffer; wog: B3's) at the tournament's threshold; the count, the
      edges sorted by (i, j) and colmax's bits exactly equal, with both
      times, B2's bound and share; a 1000-slot store (the count still
-     counts every edge, the slots written are plain's edges) and a lazy
+     counts every edge, the slots written are plain's edges), a lazy
      sweep from a 2^18-slot store that must grow (arrays equal to the
-     default store's sweep, rows swept again);
+     default store's sweep, rows swept again), and j-window buffers
+     (``WINDOW_CASES``: a window right of the diagonal, one straddling it
+     with wog, one at a non-zero j0 with an LD gate), each held to the
+     plain version as above;
   4. slice parity: the engine's sweep of a weighted S=256 x L=2048
      alignment on the card against the same engine on the CPU;
   5. the main path at the size users run it: ``spydrpick_torch.cli.main``
@@ -80,7 +83,32 @@ Phases (each raises on failure; nothing is caught):
      threshold and once with the sharded tournament; both byte-identical
      to the single-process run, and each rank launches B4 and B5 once per
      8192-column chunk of each block-row (48 for 32 block-rows), B2 once
-     per block-row, and K1 and B3 never.
+     per block-row, and K1 and B3 never;
+ 10. the wide path at a cut: S=256 x L=262,144 of the same generator
+     (past the 2^17 columns where the reference turns j-windows on),
+     weighted fixed14, lazy wog, swept by the library at 0.084647 in three
+     ways, in turns (dense full width, dense j-windows of 65536, codes
+     storage in j-windows of 65536, then backwards): identical EdgeSets,
+     K1 and B2 once per item, B3 never, each sweep's seconds, items,
+     expansion seconds and peak memory; then ``cli.main`` with
+     ``--mi-values 1000000`` as it is ("auto", which must resolve to dense
+     full-width rows) and with ``--onehot-storage codes --row-window
+     65536``: byte-identical files;
+ 11. the full width shape: scripts/bench_1m_width.py's S=256 x L=998,400
+     alignment in codes storage with ``row_window=65536`` (62,464 after
+     the reference's rounding), swept at 0.084647 - 4e-5 twice: from the
+     default store, which grows and re-sweeps rows, and from a 2^27-slot
+     store that never grows, with identical EdgeSets; 32 whole block-rows
+     (0, 512, every row swept again, 6 drawn from a seeded generator)
+     recounted in float64 from the one-hot's products (``check_recount``):
+     every pair above 0.084627 stored, within 1e-5; the count above
+     0.084647 beside the float64 count of the edges near it; the
+     reference's (the TPU run's) 34 printed group counts
+     (scripts/results_r5/bench_1m_width_final.json) each inside the
+     +-1e-5 band of this sweep's count at the MI where this sweep reaches
+     the reference's whole count 87,227,673, that MI's distance below
+     0.084647 printed; the sweep's seconds, column pairs/s, expansion
+     seconds, items, rows swept again and peak memory.
 Ranks of phases 8 and 9 are this script run as ``chip_smoke.py --rank
 ARGS``: ``cli.main(ARGS)``, then the launch counts as a JSON line; each
 has a time limit, and a rank that fails fails the phase.
@@ -98,6 +126,7 @@ Without a GPU it exits with an error before printing any result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -121,6 +150,21 @@ S_BENCH, L_BENCH = 3000, 30720
 L_SAMPLE_SHARDED = 16384  # phase 9: the crosstables cross the host through gloo
 RANK_TIMEOUT = 600  # seconds for the ranks of one sharded CLI run
 TILE = 512  # the engine's default block-row width
+# phase 3's j-window block-rows: (label, i0, j0, W, with wog, LD threshold)
+WINDOW_CASES = (("right of the diagonal", 0, 8192, 8192, False, 0),
+                ("straddling the diagonal", 6144, 4096, 8192, True, 0),
+                ("at a non-zero j0, LD-gated", 15872, 16384, 4096, False, 500))
+# phases 10 and 11: scripts/bench_1m_width.py's alignment (the bench.py
+# generator at S=256), its threshold as its JSON gives it (6 decimals) and
+# its edge count there (scripts/results_r5/bench_1m_width_final.json)
+S_WIDE, L_CUT, L_WIDE = 256, 262144, 998400
+WIDE_THRESHOLD, WIDE_EDGES, WIDE_BAND = 0.084647, 87_227_673, 1e-5
+WIDE_MARGIN = 4e-5  # phase 11 sweeps this far below WIDE_THRESHOLD
+WIDE_WINDOW = 65536  # resolves to 62464 at L_WIDE, as in the reference
+WIDE_MI_VALUES = 1_000_000  # phase 10's CLI runs: the tournament's target edge count
+WIDE_STORE = 1 << 27  # phase 11's second sweep: a store that never grows at L_WIDE
+RECOUNT_ROWS = 6  # phase 11: block-rows recounted in float64 besides the first two and reruns
+REFERENCE_LOG = "scripts/results_r5/bench_1m_width_final.json"  # the reference's 1M run
 
 
 def main_flags(fasta, wfile):
@@ -671,13 +715,15 @@ def print_select(label, n, ms, plain_ms, b2_bound):
           f"{ms:.4f} ms, plain {plain_ms:.3f} ms; {share(ms, b2_bound[0])}", flush=True)
 
 
-def random_select_case(dev, rng, density, with_wog, T=TILE, Lp=L_BENCH, L=L_BENCH - 20):
+def random_select_case(dev, rng, density, with_wog, T=TILE, Lp=L_BENCH, L=L_BENCH - 20, W=None):
     """Block-row i0 = 0 of random MI in [-0.25, 1) at a threshold that keeps
     ``density`` of it, gaps, a circular genome with an LD gate and a
-    colmax that already holds values (some -inf)."""
+    colmax that already holds values (some -inf).  ``W``: a buffer of W
+    columns (a j-window; the caller sets i0 and j0), else the full row."""
     t = lambda x: torch.from_numpy(x).to(dev)
-    mi = t((rng.random((T, Lp)) * 1.25 - 0.25).astype(np.float32))
-    wog = t(rng.random((T, Lp)).astype(np.float32)) if with_wog else None
+    W = Lp if W is None else W
+    mi = t((rng.random((T, W)) * 1.25 - 0.25).astype(np.float32))
+    wog = t(rng.random((T, W)).astype(np.float32)) if with_wog else None
     colmax = rng.random(Lp).astype(np.float32) * 0.9
     colmax[rng.random(Lp) < 0.3] = -np.inf
     genome = 2 * Lp
@@ -719,6 +765,15 @@ def phase_b2(dev, fasta, wfile):
     print(f"# B2 store of 1000 slots: count {n} = plain's, 1000 slots written, each one of "
           "plain's edges", flush=True)
     del mi, wog, args, colmax, got, want
+    for label, i0, j0, W, with_wog, ld in WINDOW_CASES:
+        mi, wog, args, colmax, kw = random_select_case(dev, rng, 0.01, with_wog, W=W)
+        kw.update(i0=i0, j0=j0, ld_threshold=ld)
+        err, n, ms, plain_ms, b2_bound = select_compare(
+            f"window {label}", mi, wog, args, colmax, kw, 10, 3)
+        worst = max(worst, err)
+        print_select(f"window {label}: rows [{i0}, {i0 + TILE}) x columns [{j0}, {j0 + W}) "
+                     f"wog={with_wog!s:5} LD {ld}", n, ms, plain_ms, b2_bound)
+        del mi, wog, args, colmax
     al, lazy, thr = pipeline_engine(dev, fasta, wfile)
     full = MIEngine(al, EngineConfig(wog_fetch="full"), device=dev)
     main = {}
@@ -1151,12 +1206,356 @@ def phase_samples_sharded(dev, td, S=S_BENCH, L=L_SAMPLE_SHARDED):
     return result
 
 
+def wide_sweep(engine, thr):
+    """``engine.sweep(thr)`` with K1, B3 and B2 counted from 0: the edges
+    and (seconds, timings, peak device memory in GiB, launches)."""
+    fns = counters()
+    for fn in fns.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tm = {}
+    t0 = time.perf_counter()
+    edges = engine.sweep(thr, timings=tm)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return edges, (dt, tm, torch.cuda.max_memory_allocated() / 2**30,
+                   {k: fn.launches for k, fn in fns.items()})
+
+
+def check_item_launches(label, tm, launches):
+    """A lazy sweep launches K1 and B2 once per item, B3 never (no row
+    swept again: the default store holds these sweeps' edges)."""
+    n = tm["n_items"]
+    if (tm["rerun_rows"] or launches["mi_tile_single"] != n or launches["row_select"] != n
+            or launches["mi_tile_dual"]):
+        raise AssertionError(f"{label}: launches {launches}, {tm['rerun_rows']} rows swept "
+                             f"again; expected {n} K1 and B2 (one per item), no B3")
+
+
+WIDE_CONFIGS = {  # phase 10's three library sweeps
+    "dense full width": dict(onehot_storage="dense", row_window=1),
+    "dense windowed": dict(onehot_storage="dense", row_window=WIDE_WINDOW),
+    "codes windowed": dict(onehot_storage="codes", row_window=WIDE_WINDOW),
+}
+
+
+def phase_wide_cut(dev, td, S=S_WIDE, L=L_CUT):
+    """Phase 10: the wide path at a cut, S=256 x L=262,144 (past the 2^17
+    columns where "auto" turns j-windows on): three library sweeps in turns
+    (dense full width, dense windowed, codes windowed, then backwards)
+    with identical EdgeSets, then the CLI with and without ``--onehot-
+    storage codes --row-window 65536``, byte-identical."""
+    from spydrpick_torch.engine.solver import EngineConfig, MIEngine
+    from spydrpick_torch.pipeline import PipelineOptions, load_and_preprocess
+    from spydrpick_torch.stage_profile import bench_alignment, write_inputs
+
+    codes, w = bench_alignment(S, L, seed=0)
+    fasta, wfile = write_inputs(td, "wide", codes, w)
+    del codes
+    al = load_and_preprocess(PipelineOptions(alignmentfile=fasta, sample_weights=wfile))
+    want, runs = None, {}
+    for name in list(WIDE_CONFIGS) + list(WIDE_CONFIGS)[::-1]:
+        engine = MIEngine(al, EngineConfig(wog_fetch="outliers", **WIDE_CONFIGS[name]),
+                          device=dev)
+        st = engine.statics
+        if (st.int8_mode != "fixed14" or st.onehot_codes != name.startswith("codes")
+                or bool(st.row_window) != name.endswith("windowed")):
+            raise AssertionError(f"{name}: engine resolved {st}")
+        edges, (dt, tm, gib, launches) = wide_sweep(engine, WIDE_THRESHOLD)
+        del engine
+        torch.cuda.empty_cache()
+        check_item_launches(name, tm, launches)
+        if want is None:
+            want = edges
+        for f in ("ipos", "jpos", "mi", "mi_wog", "colmax"):
+            if not np.array_equal(getattr(edges, f), getattr(want, f)):
+                raise AssertionError(f"wide cut, {name}: {f} differs from the dense full-width "
+                                     "sweep's")
+        runs.setdefault(name, []).append((dt, tm, gib))
+        print(f"# wide cut S={S} L={L} {name} (row_window {st.row_window}, Lp {st.Lp}): "
+              f"{edges.n_edges} edges equal to the dense full-width sweep's; sweep {dt:.3f} s, "
+              f"compute_s {tm['compute_s']:.3f}, fetch_s {tm['fetch_s']:.3f}, n_items "
+              f"{tm['n_items']}, expand_s {tm.get('expand_s', 0.0):.3f}, peak device memory "
+              f"{gib:.3f} GiB; launches {launches}", flush=True)
+    base = min(r[0] for r in runs["dense full width"])
+    for name, rs in runs.items():
+        best = min(r[0] for r in rs)
+        print(f"# wide cut {name}: best sweep {best:.3f} s, {100 * (best / base - 1):+.1f}% "
+              "against dense full width", flush=True)
+    del want
+    outs = {}
+    for label, extra in (("auto", []), ("codes windowed", ["--onehot-storage", "codes",
+                                                          "--row-window", str(WIDE_WINDOW)])):
+        out = os.path.join(td, "wide_" + label.replace(" ", "_"))
+        text, launches = cli_run(main_flags(fasta, wfile) + extra + [
+            "--mi-values", str(WIDE_MI_VALUES), "--output-dir", out], f"wide CLI ({label})")
+        engine_line = re.search(r"engine on .*", text).group(0)
+        if label == "auto" and "dense one-hot, full-width rows" not in engine_line:
+            raise AssertionError(f"wide CLI: auto resolved to {engine_line}, not dense "
+                                 "full-width rows (they fit in half of the card)")
+        stages = ", ".join(f"{k} {v}" for k, v in re.findall(r"stage time: (\w+) ([\d.]+)s",
+                                                             text))
+        n_edges = int(re.search(r"(\d+) edges stored", text).group(1))
+        print(f"# wide CLI ({label}) S={S} L={L}: {engine_line}; {n_edges} edges; stage "
+              f"seconds {stages}; launches {launches}", flush=True)
+        outs[label] = out
+    names = assert_same_outputs(outs["auto"], outs["codes windowed"], "wide CLI with codes "
+                                "storage and windows")
+    print(f"# wide CLI: {len(names)} outputs byte-identical with and without --onehot-storage "
+          f"codes --row-window {WIDE_WINDOW}", flush=True)
+    return runs
+
+
+def mi_f64(engine, weights, ipos, jpos, chunk=32768):
+    """float64 MI of explicit pairs of ``engine``'s alignment: the joint
+    counts of their codes weighted by ``weights`` in float64 and the
+    epilogue of ops/mi.py in float64 (an evaluation independent of K1)."""
+    from spydrpick_torch.engine.solver import codes_xtab
+    from spydrpick_torch.ops.mi import mi_from_crosstabs
+
+    d, st = engine.data, engine.statics
+    out = []
+    for p in range(0, len(ipos), chunk):
+        i = torch.as_tensor(ipos[p:p + chunk], device=d.codes.device)
+        j = torch.as_tensor(jpos[p:p + chunk], device=d.codes.device)
+        C = codes_xtab(d.codes[:, i], d.codes[:, j], weights)
+        out.append(mi_from_crosstabs(C, d.presence[i], d.presence[j], st.pseudocount))
+    return torch.cat(out).cpu().numpy()
+
+
+def f64_count(engine, weights, edges, thr, margin):
+    """The count above ``thr`` with float64 MI (``mi_f64``) from a sweep
+    that kept every edge above thr - margin: the edges above thr + margin
+    plus those of the band [thr - margin, thr + margin] whose float64 MI
+    lies above thr.  Exact when every pair's float64 MI lies within
+    margin of the sweep's, as the band's largest difference, which is
+    returned, must show.  Returns (count, max |mi_f64 - mi| over the band,
+    band size)."""
+    band = np.abs(edges.mi - thr) <= margin
+    m64 = mi_f64(engine, weights, edges.ipos[band], edges.jpos[band])
+    dmax = float(np.max(np.abs(m64 - edges.mi[band])))
+    n = int(np.count_nonzero(edges.mi > thr + margin)) + int(np.count_nonzero(m64 > thr))
+    return n, dmax, int(band.sum())
+
+
+def reference_groups(L, T, rw, Lp, G=8):
+    """The reference run's progress lines (``REFERENCE_LOG``) with the
+    items each one counts.  scripts/bench_1m_width.py's sweep dispatches
+    its (block-row, window) items G at a time, each block-row's windows
+    from the one that holds its diagonal (spydrpick_tpu/engine/solver.py:
+    1541-1548), and prints a group's edges above the threshold when its
+    first block-row starts within 1024 columns past a multiple of 65536
+    (:1590-1591).  Returns [(lo, hi, edges, [(i0, w0), ...])], in order."""
+    items = [(r, w0) for r in range(0, L, T) for w0 in range(r // rw * rw, Lp, rw)]
+    groups = [items[k:k + G] for k in range(0, len(items), G)]
+    shown = [g for g in groups if g[0][0] % 65536 < 1024]
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), REFERENCE_LOG)) as f:
+        lines = re.findall(r"# rows (\d+)-(\d+) \((\d+) edges", f.read())
+    if [(g[0][0], min(g[-1][0] + T, L)) for g in shown] != [(int(a), int(b)) for a, b, _ in lines]:
+        raise AssertionError(f"{REFERENCE_LOG}: its progress lines are not the groups of "
+                             f"{len(items)} items by {G}")
+    return [(int(a), int(b), int(n), g) for (a, b, n), g in zip(lines, shown)]
+
+
+def group_counts(edges, groups, T, rw, Lp, thresholds):
+    """(len(thresholds), len(groups)): this sweep's edges above each
+    threshold in the items of each reference group."""
+    nw = Lp // rw
+    gid = np.full((Lp // T) * nw, -1, dtype=np.int64)
+    for g, (_, _, _, items) in enumerate(groups):
+        for i0, w0 in items:
+            gid[i0 // T * nw + w0 // rw] = g
+    g = gid[edges.ipos // T * nw + edges.jpos // rw]
+    return np.stack([np.bincount(g[(g >= 0) & (edges.mi > t)], minlength=len(groups))
+                     for t in thresholds])
+
+
+def recount_block_row(engine, w64, i0, thr_lo, cw=4096):
+    """Every pair (i, j) of block-row i0 (i0 <= i < i0 + tile, i < j < L)
+    whose float64 MI exceeds ``thr_lo``, as (i * L + j keys, MI): the
+    one-hot's weighted products in float64 (``torch.matmul``) and the
+    epilogue of ops/mi.py in float64, independent of K1, B2, the store and
+    the windows."""
+    from spydrpick_torch.ops.mi import mi_from_crosstabs
+
+    d, st = engine.data, engine.statics
+    T, L, S = st.tile, st.L, st.S
+    states = torch.arange(5, dtype=torch.uint8, device=d.codes.device)
+    onehot = lambda c0, c1: (d.codes[:, c0:c1, None] == states).double()  # (S, n, 5)
+    pres = d.presence.double()
+    xi = (onehot(i0, i0 + T) * w64[:, None, None]).reshape(S, T * 5)
+    ii = torch.arange(i0, i0 + T, device=xi.device)
+    keys, mis = [], []
+    for c0 in range(i0, L, cw):
+        c1 = min(c0 + cw, L)
+        C = (xi.T @ onehot(c0, c1).reshape(S, -1)).view(T, 5, c1 - c0, 5).permute(0, 2, 1, 3)
+        mi = mi_from_crosstabs(C, pres[i0:i0 + T, None], pres[None, c0:c1], st.pseudocount)
+        jj = torch.arange(c0, c1, device=xi.device)
+        r, c = ((mi > thr_lo) & (jj[None, :] > ii[:, None])).nonzero(as_tuple=True)
+        keys.append(ii[r] * L + jj[c])
+        mis.append(mi[r, c])
+    return torch.cat(keys).cpu().numpy(), torch.cat(mis).cpu().numpy()
+
+
+def check_recount(edges, engine, w64, rows, thr):
+    """Hold the sweep's edges of block-rows ``rows`` to ``recount_block_row``:
+    every pair whose float64 MI exceeds thr - WIDE_MARGIN / 2 is stored,
+    within K1_TOL of it, and every stored edge above thr - WIDE_MARGIN / 2 +
+    K1_TOL is such a pair.  Returns (pairs checked, max |d|, edges above thr
+    in the sweep and in float64)."""
+    st = engine.statics
+    T, L = st.tile, st.L
+    thr_lo = thr - WIDE_MARGIN / 2
+    brow = edges.ipos // T * T
+    n_pairs, dmax, n32, n64 = 0, 0.0, 0, 0
+    for i0 in rows:
+        sel = brow == i0
+        k32, m32 = edges.ipos[sel] * L + edges.jpos[sel], edges.mi[sel]
+        order = np.argsort(k32)
+        k32, m32 = k32[order], m32[order]
+        k64, m64 = recount_block_row(engine, w64, i0, thr_lo)
+        at = np.minimum(np.searchsorted(k32, k64), len(k32) - 1)
+        lost = k32[at] != k64 if len(k32) else np.ones(len(k64), bool)
+        extra = np.setdiff1d(k32[m32 > thr_lo + K1_TOL], k64)
+        if lost.any() or len(extra):
+            raise AssertionError(
+                f"1M sweep, block-row {i0}: {int(lost.sum())} pairs above {thr_lo} in float64 "
+                f"not stored (first {k64[lost][:3] // L}, {k64[lost][:3] % L}), {len(extra)} "
+                f"stored edges above {thr_lo + K1_TOL} not above {thr_lo} in float64")
+        d = float(np.max(np.abs(m32[at] - m64))) if len(k64) else 0.0
+        if d > K1_TOL:
+            raise AssertionError(f"1M sweep, block-row {i0}: max |mi - float64| {d} > {K1_TOL}")
+        n_pairs += len(k64)
+        dmax = max(dmax, d)
+        n32 += int(np.count_nonzero(m32 > thr))
+        n64 += int(np.count_nonzero(m64 > thr))
+    return n_pairs, dmax, n32, n64
+
+
+def phase_full_width(dev, S=S_WIDE, L=L_WIDE):
+    """Phase 11: the 1M-column width shape, codes storage and j-windows,
+    swept at WIDE_THRESHOLD - WIDE_MARGIN from the default store (which
+    grows, and rows are swept again) and from a WIDE_STORE-slot store that
+    never grows: identical EdgeSets.  Whole block-rows (the first two,
+    every row swept again and RECOUNT_ROWS more) are held to a float64
+    recount of all their pairs (``check_recount``).  The count above
+    WIDE_THRESHOLD is printed beside the float64 count of the edges near
+    it and the reference's count with its +-WIDE_BAND band.  The reference
+    run's MI sits above this sweep's by one offset (PERF.md), so its
+    printed groups are held to this sweep's counts at the MI where this
+    sweep reaches the reference's whole count: each inside the +-WIDE_BAND
+    band there."""
+    from spydrpick_torch.core.alignment import Alignment
+    from spydrpick_torch.engine.solver import EngineConfig, MIEngine
+    from spydrpick_torch.stage_profile import bench_alignment
+
+    codes, w = bench_alignment(S, L, seed=0)
+    al = Alignment(codes, [f"s{i}" for i in range(S)], "width1m", np.arange(L), L, w)
+    t0 = time.perf_counter()
+    engine = MIEngine(al, EngineConfig(onehot_storage="codes", row_window=WIDE_WINDOW,
+                                       wog_fetch="outliers"), device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    st = engine.statics
+    T, rw, Lp = st.tile, st.row_window, st.Lp
+    if st.int8_mode != "fixed14" or not st.onehot_codes or rw != 62464:
+        raise AssertionError(f"1M engine resolved {st}")
+    calls = {}  # block-row -> items swept
+    row_edges = engine.row_edges
+
+    def counted(i0, *args):
+        calls[i0] = calls.get(i0, 0) + 1
+        return row_edges(i0, *args)
+
+    engine.row_edges = counted
+    thr = WIDE_THRESHOLD
+    edges, (dt, tm, gib, launches) = wide_sweep(engine, thr - WIDE_MARGIN)
+    again = sorted(i0 for i0, n in calls.items() if n > len(engine.row_windows(i0)))
+    if not np.all(np.isfinite(edges.mi)) or not np.all(edges.ipos < edges.jpos):
+        raise AssertionError("1M sweep: non-finite MI or an edge with ipos >= jpos")
+    if (len(again) != tm["rerun_rows"] or launches["mi_tile_single"] != sum(calls.values())
+            or launches["row_select"] != sum(calls.values()) or launches["mi_tile_dual"]):
+        raise AssertionError(f"1M sweep: launches {launches} for {sum(calls.values())} items "
+                             f"swept, {len(again)} rows swept again of {tm['rerun_rows']}")
+    engine.row_edges = row_edges
+    engine.config = dataclasses.replace(engine.config, store_capacity=WIDE_STORE)
+    big, (dt_big, tm_big, gib_big, launches_big) = wide_sweep(engine, thr - WIDE_MARGIN)
+    check_item_launches(f"1M sweep from a {WIDE_STORE}-slot store", tm_big, launches_big)
+    for f in ("ipos", "jpos", "mi", "colmax"):
+        if not np.array_equal(getattr(big, f), getattr(edges, f)):
+            raise AssertionError(f"1M sweep: {f} from the grown store differs from the "
+                                 f"{WIDE_STORE}-slot store's")
+    del big
+    t_rc = time.perf_counter()
+    rows = sorted({0, T} | set(again) | set(
+        (np.random.default_rng(0).choice(L // T, RECOUNT_ROWS, replace=False) * T).tolist()))
+    w64 = torch.from_numpy(w).to(dev)
+    n_pairs, dmax, rc32, rc64 = check_recount(edges, engine, w64, rows, thr)
+    rc_s = time.perf_counter() - t_rc
+    count = lambda t: int(np.count_nonzero(edges.mi > t))
+    n_above = count(thr)
+    n64, d64, n_band64 = f64_count(engine, w64, edges, thr, WIDE_MARGIN / 2)
+    if d64 >= WIDE_MARGIN / 2:
+        raise AssertionError(f"1M sweep: max |mi - float64| {d64} over the band")
+    del engine
+    torch.cuda.empty_cache()
+    # the reference's count: the MI this sweep's WIDE_EDGES largest exceed,
+    # and each printed group's count there against the reference's
+    k = edges.n_edges - WIDE_EDGES - 1
+    if k < 0:
+        raise AssertionError(f"1M sweep: {edges.n_edges} edges above {thr} - {WIDE_MARGIN}, "
+                             f"fewer than the reference's {WIDE_EDGES} above {thr}")
+    t_ref = float(np.partition(edges.mi, k)[k])
+    groups = reference_groups(L, T, rw, Lp)
+    ref = np.array([g[2] for g in groups])
+    per = group_counts(edges, groups, T, rw, Lp, (thr, thr - WIDE_BAND, thr + WIDE_BAND, t_ref,
+                                                  t_ref - WIDE_BAND, t_ref + WIDE_BAND))
+    n_lo, n_hi = count(thr - WIDE_BAND), count(thr + WIDE_BAND)
+    pairs = L * (L - 1) / 2
+    print(f"# 1M width S={S} L={L} codes, row_window {rw}, Lp {Lp}: engine built in "
+          f"{build_s:.2f} s; sweep at {thr} - {WIDE_MARGIN}: {edges.n_edges} edges in {dt:.2f} s "
+          f"= {pairs / dt:.4g} column pairs/s, compute_s {tm['compute_s']:.2f}, fetch_s "
+          f"{tm['fetch_s']:.2f}, wog_s {tm['wog_s']:.2f}, expand_s {tm['expand_s']:.2f}, n_items "
+          f"{tm['n_items']}, rows swept again {again}; peak device memory {gib:.3f} GiB; "
+          f"launches {launches}", flush=True)
+    print(f"# 1M width from a {WIDE_STORE}-slot store: the same EdgeSet in {dt_big:.2f} s, "
+          f"compute_s {tm_big['compute_s']:.2f}, no row swept again, peak device memory "
+          f"{gib_big:.3f} GiB", flush=True)
+    print(f"# 1M width float64 recount of {len(rows)} whole block-rows {rows}: {n_pairs} pairs "
+          f"above {thr - WIDE_MARGIN / 2}, every one stored, max |mi - float64| {dmax:.3e}; "
+          f"above {thr}: sweep {rc32}, float64 {rc64} ({rc_s:.1f} s)", flush=True)
+    print(f"# 1M width: {n_above} edges above {thr}; float64 count {n64} (the stored edges "
+          f"within {WIDE_MARGIN / 2} of it recounted: {n_band64}, max |d| {d64:.3e})", flush=True)
+    print(f"# 1M width against the reference's {len(groups)} printed groups "
+          f"({sum(len(g[3]) for g in groups)} items): reference {int(ref.sum())}, this sweep "
+          f"{int(per[0].sum())} ({100 * (per[0].sum() / ref.sum() - 1):+.3f}%), band +-{WIDE_BAND} "
+          f"[{int(per[2].sum())}, {int(per[1].sum())}]; per group (reference, sweep): "
+          + " ".join(f"{a}/{b}" for a, b in zip(ref.tolist(), per[0].tolist())), flush=True)
+    print(f"# 1M width at {t_ref:.8f}, where this sweep has the reference's count: each "
+          f"printed group's reference count inside its band +-{WIDE_BAND}; (reference - sweep) "
+          "per group: " + " ".join(str(x) for x in (ref - per[3]).tolist()), flush=True)
+    print(f"# 1M width: reference {WIDE_EDGES}, difference {n_above - WIDE_EDGES:+d} "
+          f"({100 * (n_above / WIDE_EDGES - 1):+.3f}%); band +-{WIDE_BAND}: [{n_hi}, {n_lo}], "
+          f"{n_lo - n_hi} edges, reference {'inside' if n_hi <= WIDE_EDGES <= n_lo else 'outside'}"
+          f"; this sweep reaches the reference's count at MI {t_ref:.8f}, {thr - t_ref:.3e} "
+          "below the threshold", flush=True)
+    off = np.nonzero((ref < per[5]) | (ref > per[4]))[0]
+    if len(off) or t_ref - WIDE_BAND <= thr - WIDE_MARGIN:
+        raise AssertionError(f"1M sweep: at {t_ref}, where this sweep has the reference's "
+                             f"count, reference groups {off.tolist()} lie outside the "
+                             f"+-{WIDE_BAND} band of its count (or that band reaches below "
+                             f"the sweep's {thr - WIDE_MARGIN})")
+    return dt, tm, gib
+
+
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--rank":
         return rank_main(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to PyTorch", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     dev = torch.device("cuda:0")
     torch.backends.cuda.matmul.allow_tf32 = False  # the f32 yardsticks and plain versions
     from spydrpick_torch.stage_profile import bench_alignment, write_inputs
@@ -1177,6 +1576,13 @@ def main() -> int:
         phase_checkpoint(dev, td, fasta, wfile, main_out, main_sweep_s)
         phase_rows_sharded(td, fasta, wfile, main_out)
         split_launches = phase_samples_sharded(dev, td)
+        t_wide = time.perf_counter()
+        phase_wide_cut(dev, td)
+        print(f"# phase 10 in {time.perf_counter() - t_wide:.1f} s", flush=True)
+    t_wide = time.perf_counter()
+    phase_full_width(dev)
+    print(f"# phase 11 in {time.perf_counter() - t_wide:.1f} s; chip_smoke so far "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     kernels = [

@@ -22,10 +22,24 @@ defaults and meanings, except:
     only process 0 writes files;
   * the run needs a GPU unless ``SPYDRPICK_TORCH_DEVICE=cpu`` asks for the
     CPU (``device.py``): without either it exits 1 before writing anything;
+  * ``--row-window`` and ``--onehot-storage`` run as in the reference and
+    change no output byte: ``--row-window W`` sweeps each block-row as
+    j-windows of W columns (rounded to tiles as the reference rounds
+    them), one K1 (or B3) and one B2 launch each; ``--onehot-storage
+    codes`` keeps the uint8 codes and their K-major copy on the device (2
+    bytes per sample and column, against 6 with the int8 modes' dense
+    one-hot, 11 with bf16's) and expands each item's operands into one
+    window's buffer on use.  "auto" (both flags' default) keeps dense
+    full-width rows on a card while they fit in half of its memory, since
+    there codes storage swept 6-7% slower than dense full-width rows and
+    dense j-windows no faster (an H100 80GB HBM3 at 700 W, S=256 x
+    L=262,144); otherwise, and on the CPU, it is the reference's rule:
+    windows of 2^16 columns past 2^17 padded columns, codes storage past
+    1 GiB of dense one-hot (engine/solver.py: ``build_device_data``).  The
+    S=3000 x L=30720 bench alignment stays dense and full width either way;
   * what this engine does not run yet is refused with a "not yet ported"
-    error and exit code 1 (``_not_yet_ported``): ``--row-window`` > 1,
-    ``--onehot-storage codes`` (``--onehot-storage auto`` resolves to
-    dense) and ``--checkpoint`` in a run of several processes.
+    error and exit code 1 (``_not_yet_ported``): ``--checkpoint`` in a run
+    of several processes.
 """
 
 from __future__ import annotations
@@ -127,13 +141,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="initial edges of the sweep's device edge store; it grows when a "
                         "sweep finds more")
     g.add_argument("--onehot-storage", choices=["auto", "dense", "codes"], default="auto",
-                   help="alignment residency; auto = dense (codes: not yet ported)")
+                   help="alignment residency on the device: dense = the K-major one-hot, "
+                        "codes = uint8 codes expanded per sweep item; auto = dense while dense "
+                        "full-width rows fit in half of the GPU, else codes past 1 GiB of "
+                        "dense one-hot")
     g.add_argument("--rows-per-dispatch", type=int, default=8,
                    help="TPU engine option, ignored here")
     g.add_argument("--pipeline-depth", type=int, default=2,
                    help="TPU engine option, ignored here")
     g.add_argument("--row-window", type=int, default=0,
-                   help="j-window width; 0 and 1 = full-width rows (windows: not yet ported)")
+                   help="j-window width of a sweep item (rounded to tiles); 0 = auto (full "
+                        "width while dense full-width rows fit in half of the GPU, else 65536 "
+                        "past 131072 padded columns), 1 = full-width rows")
     g.add_argument("--use-pallas", choices=["auto", "on", "off"], default="auto",
                    help="TPU engine option, ignored here (the CUDA kernels always run on a GPU)")
     g.add_argument("--use-pallas-compact", choices=["auto", "on", "off"], default="auto",
@@ -177,10 +196,6 @@ def _not_yet_ported(args) -> list[str]:
     bad = []
     if args.checkpoint and _world_size(args) > 1:
         bad.append("--checkpoint with several processes")
-    if args.row_window > 1:
-        bad.append("--row-window > 1")
-    if args.onehot_storage == "codes":
-        bad.append("--onehot-storage codes")
     return bad
 
 
@@ -257,6 +272,8 @@ def _run(args) -> int:
         tile=args.tile,
         mxu_int8=args.mxu_int8,
         store_capacity=args.store_capacity,
+        onehot_storage=args.onehot_storage,
+        row_window=args.row_window,
         output_dir=args.output_dir,
         profile_dir=args.profile_dir,
         checkpoint=args.checkpoint,

@@ -4,9 +4,11 @@
 //
 // Replaces spydrpick_tpu/ops/compact_route.py:route_rows_pallas (the
 // per-row compaction) and the mask and colmax part of
-// spydrpick_tpu/engine/solver.py:row_sweep_core.  For block-row i0 of a
-// sweep it reads the (T, W = Lp - i0) f32 buffer of K1 (or K1's and B3's
-// wog buffer) once and, for element (r, c), pair (i, j) = (i0 + r, i0 + c):
+// spydrpick_tpu/engine/solver.py:row_sweep_core.  For an item of a sweep,
+// block-row i0 against the columns [j0, j0 + W) (the full-width row: j0 =
+// i0, W = Lp - i0; a j-window: any j0), it reads the (T, W) f32 buffer of
+// K1 (or B3's mi and wog buffers) once and, for element (r, c), pair
+// (i, j) = (i0 + r, j0 + c):
 //   * store mask: i < L, j < L, j > i and mi > thr (f32 compare);
 //   * colmax mask: the first three, plus genome distance > ld, the
 //     distance |orig_pos[i] - orig_pos[j]| (min(d, genome - d) on a
@@ -39,9 +41,9 @@
 // blocks run in one wave); each thread owns four neighbouring columns and
 // loads them as one float4 per row (neighbouring threads on neighbouring
 // addresses), with four rows' loads in flight (two rows of mi and wog).
-// A block first bounds its rows' and columns' genome positions: where
-// every pair is valid, above the diagonal and past the LD gate (most
-// blocks), an element costs its key, a max and a compare.  Column maxima
+// A block first bounds its rows' and columns' global indices and genome
+// positions: where every pair is valid, above the diagonal and past the
+// LD gate (most blocks), an element costs its key, a max and a compare.  Column maxima
 // stay in the thread's registers over its 32 rows and row maxima are
 // reduced per warp (__reduce_max_sync) and across the block in shared
 // memory, so a block makes at most one colmax atomic per column and row
@@ -95,7 +97,7 @@ row_select_kernel(const float* __restrict__ mi, const float* __restrict__ wog,
                   float* colmax, int* __restrict__ s_i, int* __restrict__ s_j,
                   float* __restrict__ s_mi, float* __restrict__ s_wog,
                   unsigned long long* __restrict__ count, long long cap, int T, int W,
-                  int i0, int L, float thr, int ld, int circular, int genome) {
+                  int i0, int j0, int L, float thr, int ld, int circular, int genome) {
     constexpr int UNROLL = WOG ? 2 : 4;  // rows whose loads a thread keeps in flight
     __shared__ int q_i[RS_WARPS][RS_QCAP];
     __shared__ int q_j[RS_WARPS][RS_QCAP];
@@ -109,7 +111,7 @@ row_select_kernel(const float* __restrict__ mi, const float* __restrict__ wog,
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const unsigned below = (1u << lane) - 1u;
     const int c0 = blockIdx.x * RS_COLS;
-    const int c = c0 + threadIdx.x * 4;  // first of this thread's row-local columns
+    const int c = c0 + threadIdx.x * 4;  // first of this thread's buffer columns
     const int r0 = blockIdx.y * RS_ROWS;
     const bool has_cols = c < W;  // W % 4 == 0: all four columns or none
     const float neg_inf = __int_as_float(0xff800000);
@@ -118,20 +120,21 @@ row_select_kernel(const float* __restrict__ mi, const float* __restrict__ wog,
     bool gj[4] = {false, false, false, false};
     int bmin = INT_MAX, bmax = INT_MIN, amin = INT_MAX, amax = INT_MIN;
     if (has_cols) {
-        const int4 p = *reinterpret_cast<const int4*>(orig_pos + i0 + c);
+        const int4 p = *reinterpret_cast<const int4*>(orig_pos + j0 + c);
         pj[0] = p.x, pj[1] = p.y, pj[2] = p.z, pj[3] = p.w;
         bmin = min(min(p.x, p.y), min(p.z, p.w));
         bmax = max(max(p.x, p.y), max(p.z, p.w));
         if (WOG) {
-            const uchar4 g = *reinterpret_cast<const uchar4*>(gap + i0 + c);
+            const uchar4 g = *reinterpret_cast<const uchar4*>(gap + j0 + c);
             gj[0] = g.x, gj[1] = g.y, gj[2] = g.z, gj[3] = g.w;
         }
     }
     if (threadIdx.x < RS_ROWS && r0 + (int)threadIdx.x < T)
         amin = amax = __ldg(orig_pos + i0 + r0 + threadIdx.x);
     // the block is "inside" when every pair of it is valid, above the
-    // diagonal and past the LD gate: its columns' positions all lie above
-    // its rows', so d = pj - pi is bounded by the four extremes
+    // diagonal (its last row's global index below its first column's) and
+    // past the LD gate: its columns' positions all lie above its rows', so
+    // d = pj - pi is bounded by the four extremes
     bmin = __reduce_min_sync(FULL, bmin);
     bmax = __reduce_max_sync(FULL, bmax);
     amin = __reduce_min_sync(FULL, amin);
@@ -146,8 +149,8 @@ row_select_kernel(const float* __restrict__ mi, const float* __restrict__ wog,
     const int r_last = min(r0 + RS_ROWS, T) - 1, c_last = min(c0 + RS_COLS, W) - 1;
     int dmin = bmin - amax;
     if (circular) dmin = min(dmin, genome - (bmax - amin));
-    const bool inside = r_last < c0 && i0 + r_last < L && i0 + c_last < L && bmin > amax &&
-                        dmin > ld;
+    const bool inside = i0 + r_last < j0 + c0 && i0 + r_last < L && j0 + c_last < L &&
+                        bmin > amax && dmin > ld;
 
     int ckey[4] = {NEG_INF_KEY, NEG_INF_KEY, NEG_INF_KEY, NEG_INF_KEY};
     int qn = 0;  // this warp's queued survivors (the same in every lane)
@@ -206,7 +209,7 @@ row_select_kernel(const float* __restrict__ mi, const float* __restrict__ wog,
                         base = true;
                         key = ord_key(x[k]);
                     } else {
-                        base = row_ok && has_cols && i0 + c + k < L && c + k > r;
+                        base = row_ok && has_cols && j0 + c + k < L && j0 + c + k > i;
                         int d = abs(pi - pj[k]);
                         if (circular) d = min(d, genome - d);
                         key = base && d > ld ? ord_key(x[k]) : NEG_INF_KEY;
@@ -226,7 +229,7 @@ row_select_kernel(const float* __restrict__ mi, const float* __restrict__ wog,
                     if (keep[k]) {
                         const int pos = qn + __popc(b & below);
                         q_i[warp][pos] = i;
-                        q_j[warp][pos] = i0 + c + k;
+                        q_j[warp][pos] = j0 + c + k;
                         q_mi[warp][pos] = x[k];
                         if (WOG) q_wog[warp][pos] = gi || gj[k] ? y[k] : x[k];
                     }
@@ -262,7 +265,7 @@ row_select_kernel(const float* __restrict__ mi, const float* __restrict__ wog,
     }
     if (has_cols) {
 #pragma unroll
-        for (int k = 0; k < 4; ++k) colmax_update(colmax + i0 + c + k, ckey[k]);
+        for (int k = 0; k < 4; ++k) colmax_update(colmax + j0 + c + k, ckey[k]);
     }
     if (threadIdx.x < RS_ROWS && r0 + (int)threadIdx.x < T) {
         int m = row_key[0][threadIdx.x];
@@ -275,33 +278,34 @@ row_select_kernel(const float* __restrict__ mi, const float* __restrict__ wog,
 template <bool WOG>
 void launch(const void* mi, const void* wog, const void* gap, const void* orig_pos, void* colmax,
             void* s_i, void* s_j, void* s_mi, void* s_wog, void* count, long long cap, int T,
-            int W, int i0, int L, float thr, int ld, int circular, int genome,
+            int W, int i0, int j0, int L, float thr, int ld, int circular, int genome,
             cudaStream_t st) {
     const dim3 grid((W + RS_COLS - 1) / RS_COLS, (T + RS_ROWS - 1) / RS_ROWS);
     row_select_kernel<WOG><<<grid, RS_THREADS, 0, st>>>(
         (const float*)mi, (const float*)wog, (const uint8_t*)gap, (const int*)orig_pos,
         (float*)colmax, (int*)s_i, (int*)s_j, (float*)s_mi, (float*)s_wog,
-        (unsigned long long*)count, cap, T, W, i0, L, thr, ld, circular, genome);
+        (unsigned long long*)count, cap, T, W, i0, j0, L, thr, ld, circular, genome);
 }
 
 }  // namespace
 
-// mi, wog: contiguous (T, W) f32 (wog null in a lazy sweep; then s_wog is
-// null too), i0 and W = Lp - i0 multiples of 4 and both 16-byte aligned; gap:
+// mi, wog: contiguous (T, W) f32 of rows [i0, i0 + T) and columns [j0, j0 +
+// W) (wog null in a lazy sweep; then s_wog is null too), j0 and W
+// multiples of 4, both buffers 16-byte aligned; gap:
 // (Lp,) bool bytes; orig_pos: (Lp,) int32; colmax: (Lp,) f32, updated in
 // place; s_i, s_j, s_mi, s_wog: the store's cap slots; count: its uint64
 // counter.  Returns the launch's cudaGetLastError() (0 on success).
 extern "C" int spk_row_select(const void* mi, const void* wog, const void* gap,
                               const void* orig_pos, void* colmax, void* s_i, void* s_j,
                               void* s_mi, void* s_wog, void* count, long long cap, int T, int W,
-                              int i0, int L, float thr, int ld, int circular, int genome,
+                              int i0, int j0, int L, float thr, int ld, int circular, int genome,
                               void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
     if (wog)
         launch<true>(mi, wog, gap, orig_pos, colmax, s_i, s_j, s_mi, s_wog, count, cap, T, W, i0,
-                     L, thr, ld, circular, genome, st);
+                     j0, L, thr, ld, circular, genome, st);
     else
-        launch<false>(mi, wog, gap, orig_pos, colmax, s_i, s_j, s_mi, s_wog, count, cap, T, W, i0,
-                      L, thr, ld, circular, genome, st);
+        launch<false>(mi, wog, gap, orig_pos, colmax, s_i, s_j, s_mi, s_wog, count, cap, T, W,
+                      i0, j0, L, thr, ld, circular, genome, st);
     return (int)cudaGetLastError();
 }

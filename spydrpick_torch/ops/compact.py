@@ -1,4 +1,4 @@
-"""Kernel B2, ``row_select``: one pass per sweep block-row that thresholds
+"""Kernel B2, ``row_select``: one pass per sweep item that thresholds
 the row's MI, updates colmax and appends the edges to a device edge store
 (port of spydrpick_tpu/ops/compact_route.py:route_rows_pallas together
 with the mask and colmax part of spydrpick_tpu/engine/solver.py:
@@ -12,8 +12,10 @@ count only now and then, sees the overflow, grows the store and sweeps
 the rows again (engine/solver.py:MIEngine.sweep_rows).  ``ordered``
 gives a slice of the store in sweep order.
 
-``row_select(mi, wog, gap, orig_pos, colmax, store, i0, ...)`` takes block-
-row i0's (T, Lp - i0) f32 MI buffer (K1's, or B3's mi and raw wog) and:
+``row_select(mi, wog, gap, orig_pos, colmax, store, i0, ..., j0=...)`` takes
+an item's (T, W) f32 MI buffer (K1's, or B3's mi and raw wog): block-row i0
+against the columns [j0, j0 + W), the full-width row (j0 = i0, W = Lp - i0)
+or one of its j-windows, and:
   * updates ``colmax`` in place with the row and column maxima of the
     buffer over the colmax mask (valid, upper triangle, genome distance
     > ld_threshold; ``select_masks``);
@@ -109,20 +111,19 @@ class EdgeStore:
         return tuple(p[order] for p in parts)
 
 
-def select_masks(orig_pos: torch.Tensor, i0: int, T: int, n_loci: int, ld_threshold: int,
-                 linear_genome: bool, genome_size: int):
-    """(store_base, colmax_mask), each (T, Lp - i0) bool, for block-row i0
-    over columns [i0, Lp) (solver.py:643-668 of the reference; columns
-    left of the diagonal tile hold no j > i pair).  store_base: valid
-    upper-triangle pairs (storage is not LD-gated, mi.hpp:430-434);
-    colmax_mask also needs genome distance > ld_threshold
-    (mi.hpp:423-427)."""
-    Lp, dev = orig_pos.shape[0], orig_pos.device
+def select_masks(orig_pos: torch.Tensor, i0: int, T: int, j0: int, W: int, n_loci: int,
+                 ld_threshold: int, linear_genome: bool, genome_size: int):
+    """(store_base, colmax_mask), each (T, W) bool, for block-row i0 over
+    columns [j0, j0 + W) (solver.py:643-668 of the reference).
+    store_base: valid upper-triangle pairs (storage is not LD-gated,
+    mi.hpp:430-434); colmax_mask also needs genome distance >
+    ld_threshold (mi.hpp:423-427)."""
+    dev = orig_pos.device
     i_global = i0 + torch.arange(T, dtype=torch.int32, device=dev)
-    j_global = i0 + torch.arange(Lp - i0, dtype=torch.int32, device=dev)
+    j_global = j0 + torch.arange(W, dtype=torch.int32, device=dev)
     valid = (i_global[:, None] < n_loci) & (j_global[None, :] < n_loci)
     upper = j_global[None, :] > i_global[:, None]
-    d = torch.abs(orig_pos[i0:i0 + T, None] - orig_pos[None, i0:])
+    d = torch.abs(orig_pos[i0:i0 + T, None] - orig_pos[None, j0:j0 + W])
     if not linear_genome:
         d = torch.minimum(d, genome_size - d)
     store_base = valid & upper
@@ -131,21 +132,22 @@ def select_masks(orig_pos: torch.Tensor, i0: int, T: int, n_loci: int, ld_thresh
 
 def row_select_plain(mi, wog, gap, orig_pos, colmax, store: EdgeStore, i0: int, n_loci: int,
                      threshold: float, ld_threshold: int, linear_genome: bool,
-                     genome_size: int) -> None:
+                     genome_size: int, j0: int | None = None) -> None:
     """Plain-PyTorch twin of the kernel (the CPU path, and the card-side
     reference): the masks of ``select_masks``, colmax over int32
     ``_ordered`` images, the survivors in row-major order."""
-    T = mi.shape[0]
-    store_base, colmax_mask = select_masks(orig_pos, i0, T, n_loci, ld_threshold,
+    T, W = mi.shape
+    j0 = i0 if j0 is None else j0
+    store_base, colmax_mask = select_masks(orig_pos, i0, T, j0, W, n_loci, ld_threshold,
                                            linear_genome, genome_size)
     keys = _ordered(torch.where(colmax_mask, mi, torch.tensor(-np.inf, device=mi.device)))
     cm = _ordered(colmax)
-    cm[i0:] = torch.maximum(cm[i0:], keys.amax(dim=0))
+    cm[j0:j0 + W] = torch.maximum(cm[j0:j0 + W], keys.amax(dim=0))
     cm[i0:i0 + T] = torch.maximum(cm[i0:i0 + T], keys.amax(dim=1))
     colmax.view(torch.int32).copy_(_ordered(cm))
     thr = torch.tensor(threshold, dtype=torch.float32, device=mi.device)
     rows, cols = (store_base & (mi > thr)).nonzero(as_tuple=True)
-    ipos, jpos = (rows + i0).to(torch.int32), (cols + i0).to(torch.int32)
+    ipos, jpos = (rows + i0).to(torch.int32), (cols + j0).to(torch.int32)
     vals = mi[rows, cols]
     if wog is None:
         store.append_plain(ipos, jpos, vals)
@@ -154,15 +156,16 @@ def row_select_plain(mi, wog, gap, orig_pos, colmax, store: EdgeStore, i0: int, 
                            torch.where(gap[ipos] | gap[jpos], wog[rows, cols], vals))
 
 
-def _check_select(mi, wog, gap, orig_pos, colmax, store: EdgeStore, i0: int) -> None:
+def _check_select(mi, wog, gap, orig_pos, colmax, store: EdgeStore, i0: int, j0: int) -> None:
     """Raise on what the kernel does not take."""
     T, W = mi.shape if mi.dim() == 2 else (0, -1)
     Lp = orig_pos.shape[0]
     dev = mi.device
-    if (mi.dtype != torch.float32 or W != Lp - i0 or not mi.is_contiguous()
-            or W % 4 or i0 % 4 or mi.data_ptr() % 16 or not 0 <= i0 <= i0 + T <= Lp):
-        raise ValueError("row_select: mi must be a contiguous 16-byte aligned (T, Lp - i0) f32 "
-                         "tensor with i0 and Lp - i0 multiples of 4")
+    if (mi.dtype != torch.float32 or not mi.is_contiguous() or mi.data_ptr() % 16
+            or W % 4 or j0 % 4 or not 0 <= j0 <= j0 + W <= Lp or not 0 <= i0 <= i0 + T <= Lp):
+        raise ValueError("row_select: mi must be a contiguous 16-byte aligned (T, W) f32 "
+                         "tensor of rows [i0, i0 + T) and columns [j0, j0 + W) within Lp, "
+                         "j0 and W multiples of 4")
     if (wog is None) != (store.wog is None):
         raise ValueError("row_select: give wog exactly when the store keeps it")
     if wog is not None and (wog.dtype != torch.float32 or wog.shape != mi.shape
@@ -184,18 +187,22 @@ def _check_select(mi, wog, gap, orig_pos, colmax, store: EdgeStore, i0: int) -> 
 
 def row_select(mi, wog, gap, orig_pos, colmax, store: EdgeStore, i0: int, n_loci: int,
                threshold: float, ld_threshold: int, linear_genome: bool,
-               genome_size: int) -> None:
-    """Select block-row i0 into ``store`` and ``colmax`` (module
-    docstring).  ``mi`` (and ``wog``, raw, or None in a lazy sweep): the
-    (T, Lp - i0) f32 row buffer; ``gap`` (Lp,) bool, ``orig_pos`` (Lp,)
-    int32 and ``colmax`` (Lp,) f32 span every column."""
+               genome_size: int, j0: int | None = None) -> None:
+    """Select the rows [i0, i0 + T) x columns [j0, j0 + W) of a sweep
+    into ``store`` and ``colmax`` (module docstring).  ``mi`` (and
+    ``wog``, raw, or None in a lazy sweep): the (T, W) f32 row buffer,
+    its first column the global column ``j0`` (a j-window; by default i0:
+    the full-width block-row, W = Lp - i0); ``gap`` (Lp,) bool,
+    ``orig_pos`` (Lp,) int32 and ``colmax`` (Lp,) f32 span every
+    column."""
+    j0 = i0 if j0 is None else j0
     args = (mi, wog, gap, orig_pos, colmax, store, i0, n_loci, threshold, ld_threshold,
-            linear_genome, genome_size)
+            linear_genome, genome_size, j0)
     if mi.device.type == "cpu":
         return row_select_plain(*args)
     if not mi.is_cuda:
         raise ValueError(f"row_select: unsupported device {mi.device}")
-    _check_select(mi, wog, gap, orig_pos, colmax, store, i0)
+    _check_select(mi, wog, gap, orig_pos, colmax, store, i0, j0)
     T, W = mi.shape
     if T == 0 or W == 0:
         return
@@ -204,8 +211,8 @@ def row_select(mi, wog, gap, orig_pos, colmax, store: EdgeStore, i0: int, n_loci
     rc = lib.spk_row_select(
         mi.data_ptr(), ptr(wog), gap.data_ptr(), orig_pos.data_ptr(), colmax.data_ptr(),
         store.ipos.data_ptr(), store.jpos.data_ptr(), store.mi.data_ptr(), ptr(store.wog),
-        store.count.data_ptr(), store.capacity, T, W, i0, n_loci, float(np.float32(threshold)),
-        ld_threshold, 0 if linear_genome else 1, genome_size,
+        store.count.data_ptr(), store.capacity, T, W, i0, j0, n_loci,
+        float(np.float32(threshold)), ld_threshold, 0 if linear_genome else 1, genome_size,
         torch.cuda.current_stream(mi.device).cuda_stream)
     cuda_build.check(rc, "row_select")
     row_select.launches += 1

@@ -47,9 +47,9 @@ _SIGNATURES = {
     # C, ldc, ipf, jpf, ipwf, jpwf, out, out_wog, ldo, TI, TJ, bw_i, bw_j, pc, stream
     "spk_mi_epilogue": [_vp, _ll, _vp, _vp, _vp, _vp, _vp, _vp, _ll, _i, _i, _i, _i, _f, _vp],
     # mi, wog, gap, orig_pos, colmax, store ipos, jpos, mi, wog, count, capacity,
-    # T, W, i0, L, thr, ld, circular, genome, stream
+    # T, W, i0, j0, L, thr, ld, circular, genome, stream
     "spk_row_select": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _ll,
-                       _i, _i, _i, _i, _f, _i, _i, _i, _vp],
+                       _i, _i, _i, _i, _i, _f, _i, _i, _i, _vp],
 }
 
 

@@ -8,9 +8,11 @@ r at (r // k, r % k) for k sample shards, the layout of the reference's
   * "rows": each group of the rows axis sweeps its share of the
     block-rows (the balanced interleaving ``balanced_row_order``, rank r
     of the axis taking ``order[r::n_rows]``), with the engine's own
-    per-row steps (MI, then ``row_select`` into the rank's edge store);
+    per-item steps (each row's j-windows, ``MIEngine.row_windows``: MI,
+    then ``row_select`` into the rank's edge store);
   * "samples" (k > 1): each rank holds only its contiguous slice of the
-    samples (``ShardedEngineView``); a block-row's crosstable is made by
+    samples (``ShardedEngineView``; in codes storage a rank expands its
+    operands from its own codes); an item's crosstable is made by
     kernel B4 on the rank's samples, summed over the axis (int32 for the
     int8 modes: exact), converted as K1 converts, and kernel B5 runs the
     entropy epilogue on it, so the MI equals the single-device kernels'
@@ -95,8 +97,8 @@ def axis_size(mesh: DeviceMesh, name: str) -> int:
 def shard_sample_data(alignment: Alignment, config: EngineConfig, device: torch.device,
                       n_shards: int, shard: int) -> tuple[DeviceData, SweepStatics]:
     """Device data and statics of sample shard ``shard`` of ``n_shards``
-    (``sample_range``): the one-hot,
-    weights and codes of its sample rows only (so the engine's fixed14
+    (``sample_range``): the weights and codes of its sample rows only
+    (so the engine's K-major operands and fixed14
     weight digits too), S = its row count; presence, wo-gaps presence,
     gaps, the int8 mode and its scale from the whole alignment (data built
     from a sample-sliced alignment would get those wrong, and with them
@@ -111,8 +113,9 @@ class ShardedEngineView(MIEngine):
     mesh, so it answers as the single-device engine does:
 
       * ``row_mi`` / ``row_mi_dual``: B4 on the rank's samples, in
-        ``XTAB_COLS``-wide j-chunks, each all-reduced over "samples",
-        converted (``xtab_to_f32``) and finished by B5;
+        ``XTAB_COLS``-wide j-chunks of the item (i0, j0, W), each
+        all-reduced over "samples", converted (``xtab_to_f32``) and
+        finished by B5;
       * ``pair_mi``, ``pair_wog``, ``pair_quantiles`` (tournament, lazy
         wog): the pairs' codes of every shard are all-gathered in shard
         order and reduced over all samples with all the weights, the
@@ -150,16 +153,16 @@ class ShardedEngineView(MIEngine):
                           dim=1)
         return codes_xtab(codes[0], codes[1], self._weights_all)
 
-    def _split_row(self, i0: int, dual: bool):
-        """mi (and raw wog when ``dual``) of block-row i0 through B4 ->
-        all-reduce over "samples" -> f32 -> B5, chunk by chunk."""
-        xi_hi, xi_lo, xj, ipf, jpf, pc, bw, mults, scale = self.row_args(i0)
-        c0, c1 = i0 * N_STATES, (i0 + self.tile) * N_STATES
-        ipwf, jpwf = self._pwslab[c0:c1], self._pwslab[c0:]
-        W = xj.shape[1] // N_STATES
+    def _split_row(self, i0: int, j0: int | None, W: int | None, dual: bool):
+        """mi (and raw wog when ``dual``) of the item (i0, j0, W) through
+        B4 -> all-reduce over "samples" -> f32 -> B5, chunk by chunk."""
+        j0, W = self._item(i0, j0, W)
+        xi_hi, xi_lo, xj, ipf, jpf, pc, bw, mults, scale = self.row_args(i0, j0, W)
+        ipwf = self._pwslab[i0 * N_STATES:(i0 + self.tile) * N_STATES]
+        jpwf = self._pwslab[j0 * N_STATES:(j0 + W) * N_STATES]
         mis, wogs = [], []
-        for j0 in range(0, W, XTAB_COLS):
-            cols = slice(j0 * N_STATES, min(j0 + XTAB_COLS, W) * N_STATES)
+        for k0 in range(0, W, XTAB_COLS):
+            cols = slice(k0 * N_STATES, min(k0 + XTAB_COLS, W) * N_STATES)
             C = crosstab_tile(xi_hi, xi_lo, xj[:, cols], bw, mults)            # B4
             dist.all_reduce(C, group=self.group)
             C = xtab_to_f32(C, scale)
@@ -174,15 +177,17 @@ class ShardedEngineView(MIEngine):
         cat = lambda xs: xs[0] if len(xs) == 1 else torch.cat(xs, dim=1)
         return cat(mis), (cat(wogs) if dual else None)
 
-    def row_mi(self, i0: int) -> torch.Tensor:
-        return self._split_row(i0, dual=False)[0]
+    def row_mi(self, i0: int, j0: int | None = None, W: int | None = None) -> torch.Tensor:
+        return self._split_row(i0, j0, W, dual=False)[0]
 
-    def row_mi_dual(self, i0: int) -> tuple[torch.Tensor, torch.Tensor]:
-        mi, wog = self._split_row(i0, dual=True)
-        return mi, _wog_effective(self.data, self.statics, mi, wog, i0)
+    def row_mi_dual(self, i0: int, j0: int | None = None, W: int | None = None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+        mi, wog = self._split_row(i0, j0, W, dual=True)
+        return mi, _wog_effective(self.data, self.statics, mi, wog, i0, self._item(i0, j0, W)[0])
 
-    def row_buffers(self, i0: int) -> tuple[torch.Tensor, torch.Tensor | None]:
-        return self._split_row(i0, dual=not self.statics.wog_lazy)
+    def row_buffers(self, i0: int, j0: int | None = None, W: int | None = None
+                    ) -> tuple[torch.Tensor, torch.Tensor | None]:
+        return self._split_row(i0, j0, W, dual=not self.statics.wog_lazy)
 
 
 def _gather_rows(x: torch.Tensor, counts: list[int], group) -> torch.Tensor:

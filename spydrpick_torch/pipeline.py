@@ -87,6 +87,8 @@ class PipelineOptions:
     tile: int = 512
     mxu_int8: str = "auto"
     store_capacity: int = 1 << 24       # initial slots of the sweep's device edge store
+    onehot_storage: str = "auto"        # "auto" | "dense" | "codes" (EngineConfig)
+    row_window: int = 0                 # j-window width: 0 auto, 1 full-width rows
     output_dir: str = "."
     profile_dir: str | None = None      # torch.profiler trace of the sweep
     checkpoint: str | None = None       # sweep checkpoint file (resume support)
@@ -199,6 +201,8 @@ def engine_config(opts: PipelineOptions) -> EngineConfig:
         linear_genome=opts.linear_genome,
         wog_fetch="outliers",
         store_capacity=opts.store_capacity,
+        onehot_storage=opts.onehot_storage,
+        row_window=opts.row_window,
     )
 
 
@@ -242,8 +246,11 @@ def run_pipeline(opts: PipelineOptions, write_outputs: bool = True,
         engine = ShardedEngineView(alignment, engine_config(opts), mesh, device)
     else:
         engine = MIEngine(alignment, engine_config(opts), device=device)
-    _log(opts, f"engine on {device}: int8 mode {engine.statics.int8_mode}, "
-         f"{engine.S} sample rows x {engine.Lp} columns"
+    st = engine.statics
+    _log(opts, f"engine on {device}: int8 mode {st.int8_mode}, "
+         f"{engine.S} sample rows x {engine.Lp} columns, "
+         f"{'codes' if st.onehot_codes else 'dense'} one-hot, "
+         + (f"j-windows of {st.row_window} columns" if st.row_window else "full-width rows")
          + (f", mesh rows x samples = {tuple(mesh.shape)}" if mesh is not None else ""))
     t_st = _stage("engine_build_s", t_st)
 

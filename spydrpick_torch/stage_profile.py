@@ -1,18 +1,23 @@
-"""Stage times and device-busy shares of the port's default run.
+"""Stage times and device-busy shares of the port's default run, and of
+the wide-alignment sweep.
 
     python -m spydrpick_torch.stage_profile [--samples 3000] [--loci 30720]
         [--runs 3] [--seed 0] [--trace-dir DIR]
+    python -m spydrpick_torch.stage_profile --wide [--samples 256]
+        [--loci 998400] [--threshold 0.084647] [--storage codes]
+        [--row-window 65536] [--runs 1] [--seed 0] [--trace-dir DIR]
 
 Generates the bench.py "medium" alignment (uniform states, 5% gaps,
 weights uniform in [0.1, 1), ``numpy.random.default_rng(seed)``), writes
 it as FASTA plus a weights file into a temporary directory, and runs
 ``run_pipeline`` on it ``--runs`` times in one process (the automatic
-threshold, ``--seed 1``), printing each run's stage seconds.  Then it
-runs two more sweeps of the pipeline's lazy-wog engine and two exact-wog
-sweeps (``wog_fetch="full"``, the library default: B3 instead of K1),
-untraced, printing each one's seconds (``MIEngine.sweep``'s timings) and
-peak device memory, and traces one more tournament, lazy sweep and
-exact-wog sweep with torch.profiler, printing for each traced region:
+threshold, ``--seed 1``), printing each run's stage seconds and peak
+device memory.  Then it runs two more sweeps of the pipeline's lazy-wog
+engine and two exact-wog sweeps (``wog_fetch="full"``, the library
+default: B3 instead of K1), untraced, printing each one's seconds
+(``MIEngine.sweep``'s timings) and peak device memory, and traces one
+more tournament, lazy sweep and exact-wog sweep with torch.profiler,
+printing for each traced region:
 
   * wall: the region's own span in the trace (a ``record_function``
     annotation that ends after a device synchronize);
@@ -22,6 +27,16 @@ exact-wog sweep with torch.profiler, printing for each traced region:
   * lead: the time from the region's start to its first device event,
     and the longest gap between device events;
   * the device time of the kernels that took the most.
+
+``--wide``: the wide-alignment sweep instead.  The same generator at
+``--samples`` x ``--loci`` (the defaults are scripts/bench_1m_width.py's
+alignment, S=256 x L=998,400) goes straight into a lazy-wog
+``MIEngine`` with ``--storage`` and ``--row-window`` (EngineConfig's
+``onehot_storage`` and ``row_window``); it sweeps at ``--threshold``
+``--runs`` times untraced, printing sweep_s, compute_s, fetch_s, wog_s,
+n_items, expand_s (codes storage), rerun_rows, the edge count, column
+pairs/s and peak device memory, then once traced, printing the region's
+busy share and top kernels as above.
 
 The traces are written to ``--trace-dir`` when it is given.  Needs a
 CUDA device.
@@ -127,14 +142,49 @@ def timed_sweep(name: str, engine, thr: float) -> dict:
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
 
 
+def wide(args) -> int:
+    """``--wide``: the untraced and traced sweeps of the module docstring."""
+    import torch
+
+    from spydrpick_torch.core.alignment import Alignment
+    from spydrpick_torch.engine.solver import EngineConfig, MIEngine
+
+    S, L = args.samples, args.loci
+    codes, w = bench_alignment(S, L, args.seed)
+    al = Alignment(codes, [f"s{i}" for i in range(S)], "wide", np.arange(L), L, w)
+    t0 = time.perf_counter()
+    engine = MIEngine(al, EngineConfig(onehot_storage=args.storage, row_window=args.row_window,
+                                       wog_fetch="outliers"))
+    torch.cuda.synchronize()
+    st = engine.statics
+    print(json.dumps({"samples": S, "loci": L, "threshold": args.threshold,
+                      "int8_mode": st.int8_mode, "onehot_codes": st.onehot_codes,
+                      "row_window": st.row_window, "Lp": st.Lp,
+                      "engine_build_s": time.perf_counter() - t0,
+                      "device": torch.cuda.get_device_name(0)}), flush=True)
+    pairs = L * (L - 1) / 2
+    for _ in range(args.runs):
+        r = timed_sweep("wide", engine, args.threshold)
+        print(json.dumps({**r, "pairs_per_s": pairs / r["sweep_s"]}), flush=True)
+    region = traced("wide_sweep", lambda: engine.sweep(args.threshold), args.trace_dir)
+    print(json.dumps({"region": "wide_sweep", **region}), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m spydrpick_torch.stage_profile",
                                  description=__doc__.split("\n\n")[0])
-    ap.add_argument("--samples", type=int, default=3000)
-    ap.add_argument("--loci", type=int, default=30720)
+    ap.add_argument("--samples", type=int, default=None, help="default 3000 (--wide: 256)")
+    ap.add_argument("--loci", type=int, default=None, help="default 30720 (--wide: 998400)")
     ap.add_argument("--runs", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0, help="data seed")
     ap.add_argument("--trace-dir", default=None)
+    ap.add_argument("--wide", action="store_true",
+                    help="profile the wide-alignment sweep (module docstring)")
+    ap.add_argument("--threshold", type=float, default=0.084647, help="--wide: MI threshold")
+    ap.add_argument("--storage", choices=["auto", "dense", "codes"], default="codes",
+                    help="--wide: one-hot residency")
+    ap.add_argument("--row-window", type=int, default=65536, help="--wide: j-window width")
     args = ap.parse_args(argv)
 
     import torch
@@ -142,13 +192,17 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("stage_profile: no CUDA device visible to PyTorch", file=sys.stderr)
         return 2
+    if args.trace_dir:
+        os.makedirs(args.trace_dir, exist_ok=True)
+    args.samples = args.samples or (256 if args.wide else 3000)
+    args.loci = args.loci or (998400 if args.wide else 30720)
+    if args.wide:
+        return wide(args)
     from spydrpick_torch.engine.solver import MIEngine
     from spydrpick_torch.engine.threshold import default_mi_values, determine_mi_threshold
     from spydrpick_torch.pipeline import (PipelineOptions, engine_config, load_and_preprocess,
                                           run_pipeline)
 
-    if args.trace_dir:
-        os.makedirs(args.trace_dir, exist_ok=True)
     with tempfile.TemporaryDirectory() as td:
         codes, w = bench_alignment(args.samples, args.loci, args.seed)
         fasta, wfile = write_inputs(td, "bench", codes, w)
@@ -156,10 +210,12 @@ def main(argv=None) -> int:
                                output_dir=os.path.join(td, "out"))
         for run in range(args.runs):
             tm: dict = {}
+            torch.cuda.reset_peak_memory_stats()
             res = run_pipeline(opts, timings=tm)
             flat = {k: round(v, 6) for k, v in tm.items() if isinstance(v, float)}
             print(json.dumps({"run": run, "edges": res.edges.n_edges,
                               "threshold": res.mi_threshold, **flat,
+                              "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
                               "sweep_phases": tm.get("sweep_phases")}), flush=True)
 
         al = load_and_preprocess(opts)

@@ -173,14 +173,32 @@ MULTI_HOST = ["--coordinator-address", "localhost:1234", "--num-processes", "2",
 
 @pytest.mark.parametrize("flags", [
     ["--checkpoint", "sweep.ckpt"] + MULTI_HOST,
-    ["--row-window", "4096"],
-    ["--onehot-storage", "codes"],
 ])
 def test_not_yet_ported_flags_exit_1(tmp_path, capsys, flags):
     args, _, _ = FIXTURES["golden2"]
     assert torch_main(args + flags + ["--output-dir", str(tmp_path)]) == 1
     assert "not yet ported" in capsys.readouterr().err
     assert not os.listdir(tmp_path)
+
+
+@pytest.mark.parametrize("base,flags,engine", [
+    ([], ["--row-window", "4096"], "dense one-hot, full-width rows"),
+    ([], ["--onehot-storage", "codes"], "codes one-hot, full-width rows"),
+    (["--tile", "128"], ["--row-window", "128", "--onehot-storage", "codes"],
+     "codes one-hot, j-windows of 128 columns"),
+])
+def test_window_and_codes_flags_write_the_plain_runs_files(tmp_path, capsys, base, flags, engine):
+    """``--row-window`` and ``--onehot-storage codes`` run (they were
+    refused before this engine ported them) and change no output byte."""
+    args, _, _ = FIXTURES["golden2"]
+    assert torch_main(args + base + ["--output-dir", str(tmp_path / "plain")]) == 0
+    assert torch_main(args + base + flags + ["-v", "--output-dir", str(tmp_path / "flags")]) == 0
+    captured = capsys.readouterr()
+    assert engine in captured.out and "not yet ported" not in captured.err
+    names = sorted(os.listdir(tmp_path / "plain"))
+    assert names and names == sorted(os.listdir(tmp_path / "flags"))
+    for n in names:
+        assert (tmp_path / "plain" / n).read_bytes() == (tmp_path / "flags" / n).read_bytes()
 
 
 @pytest.mark.parametrize("flags,message", [

@@ -92,14 +92,19 @@ def assert_sweeps_agree(a, b, thr):
 
 @pytest.mark.parametrize("mode", list(MODES))
 def test_device_data_matches_jax(mode):
+    """The port's device data, its sample-major one-hot kept
+    (``keep_onehot``: the engine itself builds none), equals the JAX
+    engine's."""
     al, port, ref = engines(mode)
     assert port.statics.int8_mode == ref.statics.int8_mode
     assert port.statics.int8_scale == ref.statics.int8_scale
     assert port.statics.Lp == ref.statics.Lp
+    assert port.data.onehot is None
+    kept, _ = build_device_data(al, port.config, torch.device("cpu"), keep_onehot=True)
     conv = device_data_from_jax(ref.data, torch.device("cpu"))
     n = al.n_samples
     for name in DeviceData._fields:
-        mine, theirs = getattr(port.data, name), getattr(conv, name)
+        mine, theirs = getattr(kept, name), getattr(conv, name)
         assert mine.dtype == theirs.dtype, name
         if name in ("onehot", "weights", "codes"):  # the JAX engine pads samples
             assert torch.equal(mine[:n], theirs[:n]), name
@@ -193,7 +198,9 @@ def test_engine_k_major_operands_equal_the_sample_major_ones(mxu_int8, unit):
     al = random_alignment(n_samples=45, n_loci=300, seed=8, gap_frac=0.1)
     if unit:
         al.weights = None
-    eng = MIEngine(al, EngineConfig(tile=128, mxu_int8=mxu_int8), device="cpu")
+    cfg = EngineConfig(tile=128, mxu_int8=mxu_int8)
+    eng = MIEngine(al, cfg, device="cpu",
+                   _prebuilt=build_device_data(al, cfg, torch.device("cpu"), keep_onehot=True))
     st, oh, ohk, w = eng.statics, eng.data.onehot, eng._onehot_k, eng.data.weights
     assert torch.equal(ohk[:, :45], oh.T) and not ohk[:, 45:].any()
     assert ohk.shape[1] % (16 // oh.element_size()) == 0

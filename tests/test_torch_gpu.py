@@ -132,6 +132,45 @@ def test_cuda_row_select_counts_past_capacity(cuda_device):
     assert keys(got) <= keys(want)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("i0,j0,W,with_wog", [(0, 1024, 1024, False), (512, 256, 1024, True),
+                                              (1024, 1536, 1536, False)])
+def test_cuda_row_select_window_matches_plain(cuda_device, i0, j0, W, with_wog):
+    """B2 on a j-window (columns [j0, j0 + W)): right of the diagonal,
+    straddling it, and LD-gated just right of it: count, sorted edges and
+    colmax bits equal the plain version's."""
+    mi, wog, args, colmax, thr, kw = select_case(cuda_device, 0.01, with_wog)
+    mi = mi[:, :W].contiguous()
+    wog = None if wog is None else wog[:, :W].contiguous()
+    kw.update(i0=i0, j0=j0)
+    n, got, cm = run_select(row_select, mi, wog, args, colmax, kw, 1 << 18)
+    want_n, want, want_cm = run_select(row_select_plain, mi, wog, args, colmax, kw, 1 << 18)
+    assert n == want_n > 0
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert torch.equal(cm.view(torch.int32), want_cm.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wog_fetch", ["outliers", "full"])
+def test_cuda_windowed_codes_sweep_equals_full_width(cuda_device, wog_fetch):
+    """j-windows and codes storage on the card: K1 (or B3) and B2 once per
+    item, and the full-width dense sweep's arrays element for element."""
+    al = alignment(96, 1400)
+    full = MIEngine(al, EngineConfig(tile=256, wog_fetch=wog_fetch, row_window=1),
+                    device=cuda_device).sweep(0.05)
+    eng = MIEngine(al, EngineConfig(tile=256, wog_fetch=wog_fetch, row_window=512,
+                                    onehot_storage="codes"), device=cuda_device)
+    kernel = mi_tile_single if wog_fetch == "outliers" else mi_tile_dual
+    launches = kernel.launches, row_select.launches
+    tm = {}
+    got = eng.sweep(0.05, timings=tm)
+    assert tm["n_items"] > tm["n_rows"] and tm["expand_s"] > 0
+    assert (kernel.launches - launches[0], row_select.launches - launches[1]) == (tm["n_items"],) * 2
+    for f in ("ipos", "jpos", "mi", "mi_wog", "colmax"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(full, f), err_msg=f)
+
+
 def alignment(S, L, unit=False, seed=8):
     rng = np.random.default_rng(seed)
     codes = rng.integers(0, 4, size=(S, L)).astype(np.uint8)

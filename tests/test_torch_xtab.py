@@ -13,7 +13,7 @@ import torch
 
 from spydrpick_tpu.ops import mi_pallas
 from spydrpick_tpu.parallel.mesh import balanced_row_order as jax_balanced_row_order
-from spydrpick_torch.engine.solver import EngineConfig, MIEngine
+from spydrpick_torch.engine.solver import EngineConfig, MIEngine, build_device_data
 from spydrpick_torch.ops.mi_kernels import (
     BW,
     crosstab_tile,
@@ -136,7 +136,9 @@ def test_shard_sample_data_keeps_whole_alignment_statics(mode):
     al, mxu_int8, extra = alignment_for(mode, n_loci=200)
     al.codes[:20, 7] = 4  # column 7's gaps all lie in the first shard's samples
     cfg = EngineConfig(tile=128, mxu_int8=mxu_int8, **extra)
-    full = MIEngine(al, cfg, device="cpu")
+    cpu = torch.device("cpu")
+    full = MIEngine(al, cfg, device="cpu", _prebuilt=build_device_data(al, cfg, cpu,
+                                                                       keep_onehot=True))
     S = al.n_samples
     for shard in range(3):
         lo, hi = sample_range(S, 3, shard)
@@ -147,8 +149,11 @@ def test_shard_sample_data_keeps_whole_alignment_statics(mode):
         assert st.unit_weights == full.statics.unit_weights
         for f in ("presence", "presence_wog", "gap", "orig_pos"):
             assert torch.equal(getattr(data, f), getattr(full.data, f)), f
-        for f in ("onehot", "weights", "codes"):
+        for f in ("weights", "codes"):
             assert torch.equal(getattr(data, f), getattr(full.data, f)[lo:hi]), f
+        assert data.onehot is None
+        kept, _ = build_device_data(al, cfg, cpu, samples=(lo, hi), keep_onehot=True)
+        assert torch.equal(kept.onehot, full.data.onehot[lo:hi])
         local = MIEngine(al, cfg, device="cpu", _prebuilt=(data, st))
         for a, b in zip(local.row_operands(128), full.row_operands(128)):
             if isinstance(a, torch.Tensor):
