@@ -70,7 +70,7 @@ Phases (each raises on failure; nothing is caught):
      ``--checkpoint`` resumes it, launching K1 and B2 once per row not in
      the snapshot, deletes the file and writes outputs byte-identical to
      phase 5's; an uninterrupted ``--checkpoint`` run shows the cost of
-     the saves;
+     the saves: its sweep_s and checkpoint_s beside phase 5's sweep_s;
   8. the row-sharded CLI: two processes on the one card, joined by the
      multi-host flags (gloo, since they share it), run phase 5's flags
      with ``--sharded``; rank 0's outputs are byte-identical to phase 5's
@@ -108,10 +108,19 @@ Phases (each raises on failure; nothing is caught):
      +-1e-5 band of this sweep's count at the MI where this sweep reaches
      the reference's whole count 87,227,673, that MI's distance below
      0.084647 printed; the sweep's seconds, column pairs/s, expansion
-     seconds, items, rows swept again and peak memory.
-Ranks of phases 8 and 9 are this script run as ``chip_smoke.py --rank
+     seconds, items, rows swept again and peak memory;
+ 12. the checkpointed row-sharded CLI (run after phase 9, since it needs
+     phase 5's files): phase 5's flags with ``--sharded --checkpoint F
+     --checkpoint-every 8`` as two ranks, process 0 ended right after its
+     second save (16 block-rows in F); a two-rank resume launches K1 and
+     B2 once per row not in F, summed over the ranks, writes phase 5's
+     bytes and removes F; a copy of F resumed by one process does the
+     same; the kill point, rows and edges saved, each resumed run's
+     sweep_s and checkpoint_s, the launches and the wall times.
+Ranks of phases 8, 9 and 12 are this script run as ``chip_smoke.py --rank
 ARGS``: ``cli.main(ARGS)``, then the launch counts as a JSON line; each
-has a time limit, and a rank that fails fails the phase.
+has a time limit, and a rank that fails fails the phase.  Phase 12's
+killed run starts them as ``chip_smoke.py --rank-killed K ARGS``.
 The line before the last is a JSON object with each kernel's route,
 source, launches in its main-path phase (5 for K1 and B2, 6 for B3, 9 for
 B4 and B5, summed over the ranks), max error over phases 2-3, 6 and 2d,
@@ -149,6 +158,7 @@ EPILOGUE_OPS = 320  # f32 operations of one pair's mi_epilogue (csrc/mi_epilogue
 S_BENCH, L_BENCH = 3000, 30720
 L_SAMPLE_SHARDED = 16384  # phase 9: the crosstables cross the host through gloo
 RANK_TIMEOUT = 600  # seconds for the ranks of one sharded CLI run
+KILLED_RC = 17  # the exit code of a rank ended on purpose after a checkpoint save
 TILE = 512  # the engine's default block-row width
 # phase 3's j-window block-rows: (label, i0, j0, W, with wog, LD threshold)
 WINDOW_CASES = (("right of the diagonal", 0, 8192, 8192, False, 0),
@@ -1046,20 +1056,26 @@ def phase_checkpoint(dev, td, fasta, wfile, main_out, main_sweep_s, L=L_BENCH,
     if os.path.exists(path):
         raise AssertionError("the checkpoint file outlived the completed run")
     names = assert_same_outputs(main_out, out, "resumed run")
-    resumed_sweep_s = float(re.search(r"stage time: sweep_s ([\d.]+)s", text).group(1))
+    resumed_sweep_s, resumed_ck_s = sweep_seconds(text)
     print(f"# checkpoint: killed after block-row {kill_after} with {n_done} rows / {n_saved} edges "
           f"saved; resumed cli.main launched K1 {launches['mi_tile_single']} times, "
-          f"sweep_s {resumed_sweep_s:.2f}, removed the file, {len(names)} outputs "
-          f"byte-identical to phase 5's", flush=True)
+          f"sweep_s {resumed_sweep_s:.2f} (checkpoint_s {resumed_ck_s:.2f}), removed the file, "
+          f"{len(names)} outputs byte-identical to phase 5's", flush=True)
     out = os.path.join(td, "checkpointed")
     text, launches = cli_run(main_flags(fasta, wfile) + ["--checkpoint", path,
                                                          "--output-dir", out], "checkpointed")
     assert_same_outputs(main_out, out, "checkpointed run")
-    ck_sweep_s = float(re.search(r"stage time: sweep_s ([\d.]+)s", text).group(1))
-    print(f"# checkpoint: uninterrupted --checkpoint run sweep_s {ck_sweep_s:.2f} s (saves "
-          f"every 16 rows) vs phase 5 {main_sweep_s:.2f} s, outputs byte-identical; "
-          f"launches {launches}", flush=True)
+    ck_sweep_s, ck_s = sweep_seconds(text)
+    print(f"# checkpoint: uninterrupted --checkpoint run sweep_s {ck_sweep_s:.2f} s, "
+          f"checkpoint_s {ck_s:.2f} s (uncompressed saves every 16 rows) vs phase 5 sweep_s "
+          f"{main_sweep_s:.2f} s, outputs byte-identical; launches {launches}", flush=True)
     return launches
+
+
+def sweep_seconds(log):
+    """(sweep_s, checkpoint_s) of a checkpointed CLI run's ``-v`` log."""
+    return (float(re.search(r"stage time: sweep_s ([\d.]+)s", log).group(1)),
+            float(re.search(r"checkpoint saves: ([\d.]+)s", log).group(1)))
 
 
 LAUNCH_COUNTERS = ("mi_tile_single", "mi_tile_dual", "row_select", "crosstab_tile",
@@ -1073,14 +1089,29 @@ def counters():
             for name in LAUNCH_COUNTERS}
 
 
-def rank_main(argv) -> int:
+def rank_main(argv, kill_after_saves: int | None = None) -> int:
     """One rank of a sharded CLI run: ``cli.main(argv)``, then its launch
-    counts as the last line."""
+    counts as the last line.  With ``kill_after_saves`` k the process
+    ends at once, with KILLED_RC, right after its k-th checkpoint save
+    returns (only process 0 saves)."""
     fns = counters()
     for fn in fns.values():
         fn.launches = 0
     from spydrpick_torch import cli
 
+    if kill_after_saves is not None:
+        from spydrpick_torch.engine import checkpoint as ckpt_mod
+
+        save, n_saves = ckpt_mod.save, []
+
+        def save_then_die(path, ckpt):
+            save(path, ckpt)
+            n_saves.append(path)
+            if len(n_saves) == kill_after_saves:
+                sys.stdout.flush()
+                os._exit(KILLED_RC)
+
+        ckpt_mod.save = save_then_die
     rc = cli.main(argv)
     print(json.dumps({"rc": rc, "launches": {k: fn.launches for k, fn in fns.items()}}))
     return rc
@@ -1094,16 +1125,22 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def start_ranks(args, out_dir, n=2, rank_args=("--rank",)):
+    """``n`` processes of ``chip_smoke.py RANK_ARGS ARGS``, joined by the
+    multi-host flags, all on this card."""
+    port = free_port()
+    return [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), *rank_args, *args, "--output-dir", out_dir,
+         "--coordinator-address", f"127.0.0.1:{port}", "--num-processes", str(n),
+         "--process-id", str(r)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(n)]
+
+
 def run_ranks(args, out_dir, label, n=2):
     """``cli.main(args)`` in ``n`` processes joined by the multi-host flags,
     all on this card; returns each rank's log and launch counts.  Raises
     if a rank fails or outlives RANK_TIMEOUT (then every rank is killed)."""
-    port = free_port()
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--rank", *args, "--output-dir", out_dir,
-         "--coordinator-address", f"127.0.0.1:{port}", "--num-processes", str(n),
-         "--process-id", str(r)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(n)]
+    procs = start_ranks(args, out_dir, n)
     logs = []
     try:
         for p in procs:
@@ -1149,6 +1186,90 @@ def phase_rows_sharded(td, fasta, wfile, main_out, L=L_BENCH):
               + ", ".join(f"{k} {v}" for k, v in stages.items()), flush=True)
     print(f"# rows-sharded S={S_BENCH} L={L}: 2 ranks in {wall:.2f} s, K1 {k1} and B2 {b2} "
           f"launches in all, {len(names)} outputs byte-identical to phase 5's", flush=True)
+    return launches
+
+
+def kill_ranks(args, out_dir, label, saves, n=2):
+    """``cli.main(args)`` (a ``--checkpoint`` run) in ``n`` processes,
+    process 0 ending hard right after its ``saves``-th save; then every
+    rank left is killed (it waits in a collective for process 0).
+    Returns process 0's log."""
+    procs = start_ranks(args, out_dir, n, ("--rank-killed", str(saves)))
+    log = ""
+    try:
+        log = procs[0].communicate(timeout=RANK_TIMEOUT)[0]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        for p in procs[1:]:
+            p.communicate()
+        procs[0].wait()
+    if procs[0].returncode != KILLED_RC:
+        raise AssertionError(f"{label}: process 0 exited {procs[0].returncode}, not after its "
+                             f"save {saves}:\n{log[-4000:]}")
+    return log
+
+
+def phase_rows_sharded_checkpoint(td, fasta, wfile, main_out, L=L_BENCH, every=8, saves=2):
+    """Phase 12: phase 5's CLI run with --sharded --checkpoint over two
+    ranks, killed after process 0's ``saves``-th save, resumed by two
+    ranks and, from a copy of the same snapshot, by one process."""
+    path = os.path.join(td, "sharded.ckpt")
+    flags = main_flags(fasta, wfile) + ["--sharded", "--checkpoint", path,
+                                        "--checkpoint-every", str(every)]
+    t0 = time.perf_counter()
+    kill_ranks(flags, os.path.join(td, "killed"), "killed sharded run", saves)
+    t_kill = time.perf_counter() - t0
+    if os.listdir(os.path.join(td, "killed")):
+        raise AssertionError("the killed sharded run wrote outputs")
+    with np.load(path) as z:
+        n_done, n_saved = len(z["done_rows"]), len(z["mi"])
+    n_rows = -(-L // TILE)
+    if n_done != saves * every:
+        raise AssertionError(f"the killed run saved {n_done} block-rows, not {saves * every}")
+    copy = os.path.join(td, "sharded_copy.ckpt")
+    with open(path, "rb") as a, open(copy, "wb") as b:
+        b.write(a.read())
+    out = os.path.join(td, "sharded_resumed")
+    t1 = time.perf_counter()
+    logs, launches = run_ranks(flags, out, "sharded resume")
+    t_resume = time.perf_counter() - t1
+    names = assert_same_outputs(main_out, out, "sharded resumed run")
+    k1 = sum(x["mi_tile_single"] for x in launches)
+    b2 = sum(x["row_select"] for x in launches)
+    if (k1 != n_rows - n_done or b2 != n_rows - n_done
+            or any(x["crosstab_tile"] or x["mi_epilogue"] or x["mi_tile_dual"]
+                   for x in launches)):
+        raise AssertionError(f"sharded resume launches {launches}: expected "
+                             f"{n_rows - n_done} K1 and B2 in all")
+    if os.path.exists(path):
+        raise AssertionError("the snapshot outlived the completed sharded run")
+    ranks = []
+    for r, log in enumerate(logs):
+        sweep_s, ck_s = sweep_seconds(log)
+        ranks.append(f"rank {r} sweep_s {sweep_s:.2f} checkpoint_s {ck_s:.2f} "
+                     f"K1 {launches[r]['mi_tile_single']} B2 {launches[r]['row_select']}")
+    t2 = time.perf_counter()
+    out = os.path.join(td, "sharded_resumed_single")
+    text, single = cli_run(main_flags(fasta, wfile) + ["--checkpoint", copy, "--output-dir", out],
+                           "one-process resume of the sharded snapshot")
+    t_single = time.perf_counter() - t2
+    assert_same_outputs(main_out, out, "one-process resume of the sharded snapshot")
+    if single["mi_tile_single"] != n_rows - n_done or single["row_select"] != n_rows - n_done:
+        raise AssertionError(f"one-process resume launches {single}: expected "
+                             f"{n_rows - n_done} K1 and B2")
+    if os.path.exists(copy):
+        raise AssertionError("the snapshot outlived the completed one-process run")
+    sweep_s, ck_s = sweep_seconds(text)
+    print(f"# sharded checkpoint: 2 ranks saving every {every} block-rows over the mesh, "
+          f"process 0 killed after save {saves} ({t_kill:.2f} s): {n_done} rows / {n_saved} "
+          f"edges saved; 2-rank resume in {t_resume:.2f} s: " + "; ".join(ranks)
+          + f"; {len(names)} outputs byte-identical to phase 5's, file removed; one-process "
+          f"resume of the same snapshot in {t_single:.2f} s: sweep_s {sweep_s:.2f} checkpoint_s "
+          f"{ck_s:.2f}, K1 {single['mi_tile_single']} B2 {single['row_select']}, "
+          f"byte-identical, file removed; phase 12 in {time.perf_counter() - t0:.1f} s",
+          flush=True)
     return launches
 
 
@@ -1552,6 +1673,8 @@ def phase_full_width(dev, S=S_WIDE, L=L_WIDE):
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--rank":
         return rank_main(sys.argv[2:])
+    if len(sys.argv) > 2 and sys.argv[1] == "--rank-killed":
+        return rank_main(sys.argv[3:], kill_after_saves=int(sys.argv[2]))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to PyTorch", file=sys.stderr)
         return 2
@@ -1576,6 +1699,7 @@ def main() -> int:
         phase_checkpoint(dev, td, fasta, wfile, main_out, main_sweep_s)
         phase_rows_sharded(td, fasta, wfile, main_out)
         split_launches = phase_samples_sharded(dev, td)
+        phase_rows_sharded_checkpoint(td, fasta, wfile, main_out)  # phase 12: phase 5's files
         t_wide = time.perf_counter()
         phase_wide_cut(dev, td)
         print(f"# phase 10 in {time.perf_counter() - t_wide:.1f} s", flush=True)

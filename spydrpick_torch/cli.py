@@ -10,9 +10,13 @@ defaults and meanings, except:
     window; ``--store-capacity`` is the initial size of the sweep's device
     edge store, which grows when a sweep finds more edges;
   * ``--profile-dir`` writes a torch.profiler trace of the sweep;
-  * ``--checkpoint`` snapshots are the reference's format, but one written
-    by the JAX engine does not resume here (its sample axis is padded, so
-    its key differs) and the sweep starts afresh;
+  * ``--checkpoint`` snapshots are the reference's format, written
+    uncompressed, but one written by the JAX engine does not resume here
+    (its sample axis is padded, so its key differs) and the sweep starts
+    afresh; in a run of several processes every process reads the
+    snapshot and only process 0 writes and deletes it, and a ``--sharded``
+    snapshot without sample shards resumes in one process and the other
+    way round (parallel/mesh.py: ``checkpoint_key``);
   * several processes run one analysis under ``torchrun`` or with the
     multi-host flags (``--coordinator-address``, ``--num-processes``,
     ``--process-id``, a tcp:// rendezvous; parallel/distributed.py, which
@@ -36,10 +40,7 @@ defaults and meanings, except:
     L=262,144); otherwise, and on the CPU, it is the reference's rule:
     windows of 2^16 columns past 2^17 padded columns, codes storage past
     1 GiB of dense one-hot (engine/solver.py: ``build_device_data``).  The
-    S=3000 x L=30720 bench alignment stays dense and full width either way;
-  * what this engine does not run yet is refused with a "not yet ported"
-    error and exit code 1 (``_not_yet_ported``): ``--checkpoint`` in a run
-    of several processes.
+    S=3000 x L=30720 bench alignment stays dense and full width either way.
 """
 
 from __future__ import annotations
@@ -191,14 +192,6 @@ def _world_size(args) -> int:
     return int(os.environ.get("WORLD_SIZE", "1"))
 
 
-def _not_yet_ported(args) -> list[str]:
-    """The given flags this engine cannot run yet."""
-    bad = []
-    if args.checkpoint and _world_size(args) > 1:
-        bad.append("--checkpoint with several processes")
-    return bad
-
-
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.version:
@@ -207,12 +200,6 @@ def main(argv=None) -> int:
     if not args.alignmentfile:
         print("spydrpick-torch ERROR: No alignment file specified!", file=sys.stderr)
         return 1
-    bad = _not_yet_ported(args)
-    if bad:
-        print(f"spydrpick-torch ERROR: not yet ported: {', '.join(bad)} "
-              "(the JAX package spydrpick_tpu runs these)", file=sys.stderr)
-        return 1
-
     world = _world_size(args)
     if args.sample_shards < 1 or (args.sharded and world > 1 and world % args.sample_shards):
         print(f"spydrpick-torch ERROR: --sample-shards {args.sample_shards} does not divide "

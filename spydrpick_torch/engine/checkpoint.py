@@ -4,9 +4,13 @@ spydrpick_tpu/engine/checkpoint.py, which cannot be imported without jax).
 The sweep is a host loop over independent block-rows, so the checkpoint
 is {completed rows, edges so far, colmax so far}, saved atomically every
 N rows and validated against the run's parameters on resume.  The key
-and the ``.npz`` fields are the reference's; a snapshot of the JAX engine
-still does not resume here, because that engine pads S to its Pallas
-block, and a mismatched key means a fresh run.
+and the ``.npz`` fields and dtypes are the reference's; a snapshot of the
+JAX engine still does not resume here, because that engine pads S to its
+Pallas block, and a mismatched key means a fresh run.  Snapshots are
+written uncompressed (``np.savez``): each save rewrites every edge so
+far, and the reference's ``np.savez_compressed`` put all of them through
+zlib each time.  ``np.load`` reads either kind, so each package loads
+the other's files.
 """
 
 from __future__ import annotations
@@ -52,7 +56,7 @@ def save(path: str, ckpt: SweepCheckpoint) -> None:
     fd, tmp = tempfile.mkstemp(dir=os.path.dirname(os.path.abspath(path)) or ".",
                                suffix=".ckpt.tmp")
     os.close(fd)
-    np.savez_compressed(
+    np.savez(
         tmp,
         params_key=np.array(ckpt.params_key),
         done_rows=np.array(sorted(ckpt.done_rows), dtype=np.int64),

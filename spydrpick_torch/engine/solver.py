@@ -80,6 +80,7 @@ from spydrpick_torch.engine import checkpoint as ckpt_mod
 from spydrpick_torch.ops.compact import EdgeStore, row_select
 from spydrpick_torch.ops.mi import mi_from_crosstabs
 from spydrpick_torch.ops.mi_kernels import BW, mi_tile_dual, mi_tile_single, split_bf16, to_slab
+from spydrpick_torch.parallel.distributed import is_writer
 
 # elements of one (S, 25, P) pairs-crosstable temporary (1 GiB of f32)
 _PAIRS_BUDGET = 1 << 28
@@ -775,7 +776,10 @@ class MIEngine:
         every ``checkpoint_every`` rows swept, except after the last, the
         store's count is checked and the completed rows are saved, copying
         only the new rows' edges to the host; the file is deleted when the
-        sweep completes.
+        sweep completes.  In a run of several processes, each sweeping
+        the whole alignment, every process may resume from the snapshot
+        and only process 0 saves and deletes it
+        (``parallel.distributed.is_writer``).
         ``timings``: optional dict that receives compute_s (snapshot
         load, block-row loop and saves), checkpoint_s (the saves), fetch_s (the
         remaining edges and colmax to the host), wog_s (lazy wo-gaps
@@ -798,8 +802,8 @@ class MIEngine:
         todo = [i0 for i0 in range(0, L, st.tile) if i0 not in host.done_rows]
         store = self.new_store()
         every = max(1, checkpoint_every)
-        saves = (frozenset(range(every - 1, len(todo) - 1, every)) if checkpoint_path
-                 else frozenset())
+        writer = bool(checkpoint_path) and is_writer()
+        saves = frozenset(range(every - 1, len(todo) - 1, every)) if writer else frozenset()
         saved = 0  # store slots already on the host
         ckpt_s = 0.0
 
@@ -826,7 +830,7 @@ class MIEngine:
             # snapshot and fresh rows alike hold mi placeholders: resolve the
             # candidates of the final colmax over the whole edge set
             s_w = self._resolve_deferred_wog(s_m, s_i, s_j, colmax_h)
-        if checkpoint_path and os.path.exists(checkpoint_path):
+        if writer and os.path.exists(checkpoint_path):
             os.unlink(checkpoint_path)  # run completed; stale resume data
         if timings is not None:
             timings["compute_s"] = t1 - t0
@@ -865,7 +869,11 @@ class MIEngine:
         if s_m.size == 0:
             return s_w
         thr_out, _ = outlier_thresholds(colmax)
-        cand = s_m >= thr_out
-        if cand.any():
+        cand = np.flatnonzero(s_m >= thr_out)
+        # in (ipos, jpos) order: a pair's f32 sum over samples depends on
+        # its place in the batch, and sharded or resumed sweeps return
+        # their edges in other orders than one uninterrupted sweep
+        cand = cand[np.lexsort((s_j[cand], s_i[cand]))]
+        if cand.size:
             s_w[cand] = self.pair_wog(s_i[cand], s_j[cand])
         return s_w

@@ -4,16 +4,20 @@ spydrpick_tpu/ops/mi.py:mi_from_crosstabs).
 Used by the pairs paths (threshold tournament, lazy wo-gaps resolve);
 the all-pairs sweep goes through kernel K1 (ops/mi_kernels.py) instead.
 Semantics follow include/mi.hpp:146-181, including the full-row-sum
-quirk of mi.hpp:173 (see spydrpick_tpu/ops/reference.py).
+quirk of mi.hpp:173 (see ops/reference.py, the float64 oracle).
 """
 
 from __future__ import annotations
 
 import torch
 
+from spydrpick_torch.ops.mi_kernels import cpu_log_ready
+
 
 def _xlogx(x: torch.Tensor) -> torch.Tensor:
     """x * ln(x), defined as 0 at x <= 0 (apegrunt ``xlogx``)."""
+    if x.device.type == "cpu":
+        cpu_log_ready()
     pos = x > 0
     return torch.where(pos, x * torch.log(torch.where(pos, x, 1.0)), 0.0)
 

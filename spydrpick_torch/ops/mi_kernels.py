@@ -37,6 +37,8 @@ engine/solver.py:build_device_data):
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from spydrpick_torch.ops import cuda_build
@@ -91,7 +93,21 @@ def _kernel_operand(x: torch.Tensor, ld: int | None = None) -> torch.Tensor:
     return out[:, :x.shape[0]].T
 
 
+@functools.cache
+def cpu_log_ready() -> None:
+    """One single-threaded ``torch.log`` on the CPU, before any parallel
+    one.  On the CPU it runs MKL's vector math, which sets up its kernels
+    at first use; a first call made from several OpenMP threads at once
+    has returned logs with relative errors up to 1.4e-4 in ranks of a
+    gloo run (one block-row's MI, or the tournament's, up to 1.5e-5 low;
+    about one process in 60 with 8 threads).  A tensor too small to
+    split between threads sets them up first."""
+    torch.log(torch.ones(8))
+
+
 def _ln_pos(x: torch.Tensor) -> torch.Tensor:
+    if x.device.type == "cpu":
+        cpu_log_ready()
     return torch.log(torch.where(x > 0, x, 1.0))
 
 

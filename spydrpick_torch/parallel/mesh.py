@@ -27,10 +27,19 @@ order, is all-gathered over "rows" (counts first, then payloads padded
 to the largest count, since gloo's all_gather takes equal sizes): every
 rank ends with the same ``EdgeSet``.  The reference's store epochs,
 drains and dispatch groups are not ported.
+
+``sharded_sweep(checkpoint_path=...)`` checkpoints as the reference
+does (spydrpick_tpu/parallel/mesh.py:533-547, 740-770, 854-858): every
+rank loads the snapshot, and its rows leave the balanced order before
+the rows are dealt out; a save, collective and at the same local row
+on every rank, gathers the rows that every rank has completed, and
+process 0 alone writes the file and deletes it when the sweep completes.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import os
 import time
 
 import numpy as np
@@ -41,6 +50,7 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 from spydrpick_torch.core.alignment import Alignment
 from spydrpick_torch.core.alphabet import N_STATES
 from spydrpick_torch.device import default_device, synchronize
+from spydrpick_torch.engine import checkpoint as ckpt_mod
 from spydrpick_torch.engine.solver import (
     _PAIRS_BUDGET,
     DeviceData,
@@ -201,15 +211,82 @@ def _gather_rows(x: torch.Tensor, counts: list[int], group) -> torch.Tensor:
     return torch.cat([p[:c] for p, c in zip(parts, counts)])
 
 
+def _gather_store(store, lo: int, rows: list[int], tile: int, width: int, group,
+                  n_ranks: int) -> list[np.ndarray]:
+    """Store slots [lo, store.checked) of every rank of ``group``, each
+    rank's in its sweep order (``EdgeStore.ordered`` over its ``rows``),
+    concatenated in rank order on the host: (ipos, jpos, mi[, wog])."""
+    local = store.ordered(lo, store.checked, rows, tile, width)
+    n = torch.tensor([store.checked - lo], dtype=torch.int64, device=store.count.device)
+    ns = [torch.empty_like(n) for _ in range(n_ranks)]
+    dist.all_gather(ns, n, group=group)
+    counts = [int(x) for x in ns]
+    return [_gather_rows(x, counts, group).cpu().numpy() for x in local]
+
+
+def checkpoint_key(engine: MIEngine, threshold: float, mesh: DeviceMesh) -> str:
+    """The key of a sweep snapshot over ``mesh``, as the reference keys
+    it (``ckpt_mod.params_key``).  On a rows-only mesh every rank's
+    engine is the whole-alignment ``MIEngine``, so the key is the
+    one-process key and a snapshot resumes in one process and the other
+    way round.  A ``ShardedEngineView`` is keyed as the reference keys
+    its view: S is the alignment's sample count rounded up to a multiple
+    of the shard count (spydrpick_tpu/parallel/mesh.py:shard_sample_data
+    without Pallas).  Such a snapshot crosses over to one process only
+    where the shard count divides S; its MI is the one-process MI bit
+    for bit in the int8 modes, while bf16 shards sum in another f32
+    order."""
+    st = engine.statics
+    if isinstance(engine, ShardedEngineView):
+        k = axis_size(mesh, "samples")
+        st = dataclasses.replace(st, S=-(-engine.alignment.n_samples // k) * k)
+    return ckpt_mod.params_key(st, threshold)
+
+
+def load_snapshot(path: str | None, key: str, L: int,
+                  device: torch.device) -> ckpt_mod.SweepCheckpoint:
+    """The snapshot at ``path`` with this run's ``key``, or an empty one;
+    called by every rank together when there is a path.  Every rank must
+    deal out the same rows: the all-reduce that checks that they loaded
+    the same rows also holds process 0 back from its first save (which
+    replaces the file) until every rank has loaded it."""
+    snap = ckpt_mod.load(path, key) if path else None
+    if snap is None:
+        snap = ckpt_mod.SweepCheckpoint(key, set(), np.full(L, -np.inf), [], [], [], [])
+    if path:
+        n, s = len(snap.done_rows), sum(snap.done_rows)
+        t = torch.tensor([n, s, -n, -s], dtype=torch.int64, device=device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        if t[0] != -t[2] or t[1] != -t[3]:
+            raise RuntimeError(f"the ranks loaded different snapshots of {path}")
+    return snap
+
+
 def sharded_sweep(engine: MIEngine, threshold: float, mesh: DeviceMesh, progress=None,
+                  checkpoint_path: str | None = None, checkpoint_every: int = 16,
                   timings: dict | None = None) -> EdgeSet:
     """All-pairs sweep over the mesh; every rank returns the same
     ``EdgeSet``, equal to ``MIEngine.sweep``'s on one device (bit for bit
     in the int8 modes; bf16 crosstables of sample shards sum in another
     f32 order).  ``engine``: a whole-alignment ``MIEngine`` on a mesh with
     one sample shard, a ``ShardedEngineView`` of this rank's shard
-    otherwise.  ``progress`` and ``timings`` as for ``MIEngine.sweep``
-    (over this rank's rows)."""
+    otherwise.  ``progress`` as for ``MIEngine.sweep`` (over this rank's
+    rows).
+
+    ``checkpoint_path``: a snapshot with this run's key
+    (``checkpoint_key``) resumes it on every rank (``load_snapshot``):
+    its rows leave the balanced order before the rows are dealt out, its
+    colmax is every rank's start, and its edges join the gathered ones
+    once at the end.  Saves come after every ``checkpoint_every``
+    block-rows swept over the mesh (the reference's count), except after
+    the last: after the same local row on every rank, which each rank of
+    the rows axis reaches, a collective save all-reduces colmax and
+    gathers each rank's store slots since its last save (its checks have
+    re-swept any overflow by then, so no saved row is truncated), and
+    process 0 writes the rows that every rank has completed.  Process 0
+    deletes the file when the sweep completes.
+    ``timings`` as for ``MIEngine.sweep``: compute_s, checkpoint_s,
+    fetch_s, wog_s, n_rows and rerun_rows, over this rank's rows."""
     if axis_size(mesh, "samples") > 1 and not isinstance(engine, ShardedEngineView):
         raise ValueError("a mesh with sample shards sweeps a ShardedEngineView")
     rows_group = mesh.get_group("rows")
@@ -218,8 +295,11 @@ def sharded_sweep(engine: MIEngine, threshold: float, mesh: DeviceMesh, progress
     T, L, Lp = st.tile, st.L, st.Lp
     synchronize(dev)
     t0 = time.perf_counter()
+    snap = load_snapshot(checkpoint_path, checkpoint_key(engine, threshold, mesh), L, dev)
     colmax = torch.full((Lp,), -np.inf, dtype=torch.float32, device=dev)
-    mine = [r * T for r in balanced_row_order(-(-L // T))][mesh.get_local_rank("rows")::n_rows_sh]
+    colmax[:L] = torch.from_numpy(snap.colmax).to(device=dev, dtype=torch.float32)
+    order = [r * T for r in balanced_row_order(-(-L // T)) if r * T not in snap.done_rows]
+    mine = order[mesh.get_local_rank("rows")::n_rows_sh]
     agree = None
     if axis_size(mesh, "samples") > 1:
         samples_group = mesh.get_group("samples")
@@ -230,25 +310,56 @@ def sharded_sweep(engine: MIEngine, threshold: float, mesh: DeviceMesh, progress
             return int(t)
 
     store = engine.new_store()
-    rerun = engine.sweep_rows(mine, threshold, colmax, store, progress, agree=agree)
+    # round k sweeps the k-th row of every rank of the rows axis; saves
+    # fall in rounds that every rank sweeps, the last round excepted
+    rounds = max(1, -(-checkpoint_every // n_rows_sh))
+    saves = frozenset(k for k in range(rounds - 1, len(order) // n_rows_sh, rounds)
+                      if (k + 1) * n_rows_sh < len(order)) if checkpoint_path else frozenset()
+    writer = dist.get_rank() == 0
+    written = dataclasses.replace(snap, done_rows=set(snap.done_rows), ipos=list(snap.ipos),
+                                  jpos=list(snap.jpos), mi=list(snap.mi),
+                                  mi_wog=list(snap.mi_wog))
+    saved, ckpt_s = 0, 0.0
+
+    def save(k):
+        nonlocal saved, ckpt_s
+        t_ck = time.perf_counter()
+        cm = colmax.clone()
+        dist.all_reduce(cm, op=dist.ReduceOp.MAX, group=rows_group)
+        new = _gather_store(store, saved, mine, T, Lp, rows_group, n_rows_sh)
+        saved = store.checked
+        if writer:
+            written.ipos.append(new[0].astype(np.int64))
+            written.jpos.append(new[1].astype(np.int64))
+            written.mi.append(new[2].astype(np.float64))
+            written.mi_wog.append(written.mi[-1] if store.wog is None
+                                  else new[3].astype(np.float64))
+            written.done_rows.update(order[:(k + 1) * n_rows_sh])
+            written.colmax = cm[:L].cpu().numpy().astype(np.float64)
+            ckpt_mod.save(checkpoint_path, written)
+        ckpt_s += time.perf_counter() - t_ck
+
+    rerun = engine.sweep_rows(mine, threshold, colmax, store, progress, saves, save, agree=agree)
     synchronize(dev)
     t1 = time.perf_counter()
     dist.all_reduce(colmax, op=dist.ReduceOp.MAX, group=rows_group)
-    local = store.ordered(0, store.checked, mine, T, Lp)
-    n = torch.tensor([store.checked], dtype=torch.int64, device=dev)
-    ns = [torch.empty_like(n) for _ in range(n_rows_sh)]
-    dist.all_gather(ns, n, group=rows_group)
-    counts = [int(x) for x in ns]
-    got = [_gather_rows(x, counts, rows_group).cpu().numpy() for x in local]
-    s_i, s_j, s_m = got[0].astype(np.int64), got[1].astype(np.int64), got[2].astype(np.float64)
+    got = _gather_store(store, 0, mine, T, Lp, rows_group, n_rows_sh)
+    cat = lambda xs, dt: np.concatenate(xs) if xs else np.empty(0, dt)
+    s_i = cat(snap.ipos + [got[0].astype(np.int64)], np.int64)
+    s_j = cat(snap.jpos + [got[1].astype(np.int64)], np.int64)
+    s_m = cat(snap.mi + [got[2].astype(np.float64)], np.float64)
     colmax_h = colmax[:L].cpu().numpy().astype(np.float64)
     t2 = time.perf_counter()
     if st.wog_lazy:
+        # snapshot and fresh rows alike hold mi placeholders
         s_w = engine._resolve_deferred_wog(s_m, s_i, s_j, colmax_h)
     else:
-        s_w = got[3].astype(np.float64)
+        s_w = cat(snap.mi_wog + [got[3].astype(np.float64)], np.float64)
+    if checkpoint_path and writer and os.path.exists(checkpoint_path):
+        os.unlink(checkpoint_path)  # run completed; stale resume data
     if timings is not None:
         timings["compute_s"] = t1 - t0
+        timings["checkpoint_s"] = ckpt_s
         timings["fetch_s"] = t2 - t1
         timings["wog_s"] = time.perf_counter() - t2
         timings["n_rows"] = len(mine)

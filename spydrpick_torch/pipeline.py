@@ -236,9 +236,6 @@ def run_pipeline(opts: PipelineOptions, write_outputs: bool = True,
     if opts.sharded and world_size() > 1:
         from spydrpick_torch.parallel.mesh import ShardedEngineView, make_mesh
 
-        if opts.checkpoint:
-            raise ValueError("--checkpoint with a sharded sweep over several processes: "
-                             "not yet ported")
         mesh = make_mesh(opts.sample_shards)
     elif opts.sharded:
         _log(opts, "only one device visible; using single-device sweep")
@@ -282,6 +279,8 @@ def run_pipeline(opts: PipelineOptions, write_outputs: bool = True,
 
             edges = sharded_sweep(engine, mi_threshold, mesh,
                                   progress=progress if opts.verbose else None,
+                                  checkpoint_path=opts.checkpoint,
+                                  checkpoint_every=opts.checkpoint_every,
                                   timings=sweep_phases)
         else:
             edges = engine.sweep(mi_threshold, progress=progress if opts.verbose else None,
@@ -289,6 +288,8 @@ def run_pipeline(opts: PipelineOptions, write_outputs: bool = True,
                                  checkpoint_every=opts.checkpoint_every, timings=sweep_phases)
     tm["sweep_phases"] = sweep_phases
     t_st = _stage("sweep_s", t_st)
+    if opts.checkpoint:
+        _log(opts, f"checkpoint saves: {sweep_phases['checkpoint_s']:.2f}s")
     _log(opts, f"{edges.n_edges} edges stored")
 
     outlier_thr, extreme_thr = outlier_thresholds(edges.colmax)

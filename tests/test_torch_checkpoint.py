@@ -97,6 +97,37 @@ def test_checkpoint_format_shared_with_reference(tmp_path, writer, reader):
                                    "params_key"]
 
 
+def test_snapshot_is_uncompressed_and_each_package_loads_the_others(tmp_path):
+    """The port writes the reference's fields and dtypes without zlib; the
+    reference's compressed file loads in the port and the port's file in
+    the reference, with the same arrays."""
+    import zipfile
+
+    rng = np.random.default_rng(5)
+    n = 20000
+    c = ck.SweepCheckpoint("key", {0, 512, 1024}, rng.random(1500),
+                           [rng.integers(0, 1500, n)], [rng.integers(0, 1500, n)],
+                           [rng.random(n)], [rng.random(n)])
+    port, ref = str(tmp_path / "port.ckpt"), str(tmp_path / "ref.ckpt")
+    ck.save(port, c)
+    jax_ck.save(ref, c)
+    with zipfile.ZipFile(port) as z:
+        assert {i.compress_type for i in z.infolist()} == {zipfile.ZIP_STORED}
+    with zipfile.ZipFile(ref) as z:
+        assert zipfile.ZIP_DEFLATED in {i.compress_type for i in z.infolist()}
+    assert os.path.getsize(port) > os.path.getsize(ref)
+    with np.load(port) as a, np.load(ref) as b:
+        assert sorted(a.files) == sorted(b.files)
+        for f in a.files:
+            assert a[f].dtype == b[f].dtype and a[f].shape == b[f].shape, f
+    for reader, path in ((jax_ck, port), (ck, ref)):
+        got = reader.load(path, "key")
+        assert got is not None and got.done_rows == c.done_rows
+        np.testing.assert_array_equal(got.colmax, c.colmax)
+        for f in ("ipos", "jpos", "mi", "mi_wog"):
+            np.testing.assert_array_equal(getattr(got, f)[0], getattr(c, f)[0])
+
+
 @pytest.mark.parametrize("wog_fetch", ["outliers", "full"])
 def test_params_key_has_the_reference_format(wog_fetch):
     st = engine(wog_fetch, n_loci=300).statics

@@ -171,16 +171,6 @@ MULTI_HOST = ["--coordinator-address", "localhost:1234", "--num-processes", "2",
               "--process-id", "0"]
 
 
-@pytest.mark.parametrize("flags", [
-    ["--checkpoint", "sweep.ckpt"] + MULTI_HOST,
-])
-def test_not_yet_ported_flags_exit_1(tmp_path, capsys, flags):
-    args, _, _ = FIXTURES["golden2"]
-    assert torch_main(args + flags + ["--output-dir", str(tmp_path)]) == 1
-    assert "not yet ported" in capsys.readouterr().err
-    assert not os.listdir(tmp_path)
-
-
 @pytest.mark.parametrize("base,flags,engine", [
     ([], ["--row-window", "4096"], "dense one-hot, full-width rows"),
     ([], ["--onehot-storage", "codes"], "codes one-hot, full-width rows"),

@@ -1,17 +1,21 @@
 """The port's copies of the JAX package's host modules (spydrpick_torch/core,
-io, utils and native) against their originals, on both golden fixtures and
-a seeded random alignment: FASTA parse (native and NumPy paths), the
-filter's keep lists, the writers' bytes (native and Python couplings
-formatter) and the native ARACNE flags.  The port's functions also take an
-Alignment built by the JAX package's reader."""
+io, utils, native, plot and ops/reference) against their originals, on
+both golden fixtures and a seeded random alignment: FASTA parse (native and
+NumPy paths), the filter's keep lists, the writers' bytes (native and
+Python couplings formatter), the native ARACNE flags, the Manhattan plot
+and the float64 MI oracle.  The port's functions also take an Alignment
+built by the JAX package's reader."""
 
 import io
 import os
 import pathlib
+import subprocess
+import sys
 import types
 
 import numpy as np
 import pytest
+import torch
 
 from spydrpick_tpu.core import alphabet as jax_alphabet
 from spydrpick_tpu.core import distance as jax_distance
@@ -22,10 +26,16 @@ from spydrpick_tpu.io import loci as jax_loci
 from spydrpick_tpu.io import writers as jax_writers
 from spydrpick_tpu.native import aracne_native as jax_aracne_native
 from spydrpick_tpu.native import fasta_native as jax_fasta_native
+from spydrpick_tpu.ops import reference as jax_reference
+from spydrpick_tpu import plot as jax_plot
+from spydrpick_torch import plot
 from spydrpick_torch.core import alphabet, distance
 from spydrpick_torch.core import filter as port_filter
 from spydrpick_torch.io import fasta, loci, writers
 from spydrpick_torch.native import BUILD_DIR, aracne_native, fasta_native
+from spydrpick_torch.ops import reference
+from spydrpick_torch.ops.mi import mi_from_crosstabs
+from spydrpick_torch.pipeline import PipelineOptions, run_pipeline
 from spydrpick_torch.utils.stopwatch import time_string
 from spydrpick_torch.utils.uniquefile import unique_path
 
@@ -184,3 +194,74 @@ def test_alphabet_distance_and_helpers_equal_the_original(tmp_path):
                                                                "1m15.0s"]
     (tmp_path / "out").write_text("")
     assert unique_path(tmp_path / "out").name == "out.1"
+
+
+@pytest.fixture(scope="module")
+def port_couplings(tmp_path_factory):
+    """A CLI-sized run of the port's pipeline on the CPU (every pair kept,
+    as tests/test_cli_extra.py:69-82 does): its couplings file and
+    outlier threshold."""
+    tmp = tmp_path_factory.mktemp("plot")
+    al = random_alignment(n_samples=40, n_loci=30, seed=82)
+    path = tmp / "a.fasta"
+    jax_fasta.write_fasta(path, al)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("SPYDRPICK_TORCH_DEVICE", "cpu")
+        res = run_pipeline(PipelineOptions(
+            alignmentfile=str(path), mi_threshold=0.0, no_filter_alignment=True,
+            no_sample_reweighting=True, output_dir=str(tmp)))
+    return res.couplings_path, res.outlier_threshold
+
+
+def test_plot_tool_plots_the_port_cli_output(port_couplings, tmp_path):
+    couplings, thr = port_couplings
+    args = [couplings, "--out", str(tmp_path / "plot.png"), "--ld-dist", "5",
+            "--outlier-threshold", str(thr)]
+    assert plot.main(args) == 0
+    assert (tmp_path / "plot.png").read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+    # the entry point runs as a module; by default the PNG goes beside the input
+    env = dict(os.environ, PYTHONPATH=str(pathlib.Path(__file__).parents[1]))
+    res = subprocess.run([sys.executable, "-m", "spydrpick_torch.plot", couplings], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == couplings + ".gwes_plot.png"
+    assert os.path.getsize(couplings + ".gwes_plot.png") > 0
+
+
+def test_plot_equals_the_original(port_couplings, tmp_path):
+    """The same columns read and the same PNG bytes drawn, with and without
+    the threshold rules."""
+    couplings, thr = port_couplings
+    for got, want in zip(plot.load_couplings(couplings), jax_plot.load_couplings(couplings)):
+        np.testing.assert_array_equal(got, want)
+    for rules in ({}, {"ld_dist": 5.0, "outlier_threshold": thr,
+                       "extreme_outlier_threshold": thr * 1.2}):
+        a = plot.gwes_plot(couplings, str(tmp_path / "port.png"), **rules)
+        b = jax_plot.gwes_plot(couplings, str(tmp_path / "ref.png"), **rules)
+        assert pathlib.Path(a).read_bytes() == pathlib.Path(b).read_bytes()
+        os.unlink(a), os.unlink(b)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_reference_oracle_equals_the_original(seed):
+    """``mi_matrix``, ``mi_single`` (with and without the wo-gaps
+    presence, where mi.hpp:173's full-row sum shows), ``crosstab_pair`` and
+    ``xlogx`` of the copy are the original's bit for bit; the port's
+    batched f64 MI agrees with the oracle."""
+    al = random_alignment(n_samples=30, n_loci=12, seed=seed, gap_frac=0.2)
+    args = (al.codes, al.weights, al.state_presence)
+    np.testing.assert_array_equal(reference.mi_matrix(*args, 0.5),
+                                  jax_reference.mi_matrix(*args, 0.5))
+    rng = np.random.default_rng(seed)
+    x = rng.random(50) - 0.1
+    np.testing.assert_array_equal(reference.xlogx(x), jax_reference.xlogx(x))
+    for i, j in rng.integers(0, al.n_loci, (6, 2)):
+        C = reference.crosstab_pair(al.codes[:, i], al.codes[:, j], al.weights)
+        np.testing.assert_array_equal(
+            C, jax_reference.crosstab_pair(al.codes[:, i], al.codes[:, j], al.weights))
+        for pres in (al.state_presence, al.state_presence_wo_gaps):
+            got = reference.mi_single(C, pres[i], pres[j], 0.5)
+            assert got == jax_reference.mi_single(C, pres[i], pres[j], 0.5)
+            batched = mi_from_crosstabs(torch.from_numpy(C), torch.from_numpy(pres[i]),
+                                        torch.from_numpy(pres[j]), 0.5)
+            assert abs(float(batched) - got) <= 1e-12

@@ -54,7 +54,8 @@ def test_port_imports_without_jax():
     res = run_python(
         "import spydrpick_torch, spydrpick_torch.cli, spydrpick_torch.pipeline\n"
         "import spydrpick_torch.engine.solver, spydrpick_torch.core.weights\n"
-        "import spydrpick_torch.parallel.mesh, spydrpick_torch.io.writers\n" + REPORT)
+        "import spydrpick_torch.parallel.mesh, spydrpick_torch.io.writers\n"
+        "import spydrpick_torch.plot, spydrpick_torch.ops.reference\n" + REPORT)
     assert res.returncode == 0, res.stderr
     assert res.stdout.splitlines() == ["[]", "[]"]
 

@@ -298,13 +298,15 @@ def cli_runs(tmp_path_factory):
 def test_cli_sharded_matches_single_process(cli_runs, variant):
     d, singles, logs = cli_runs
     want = singles["--mi-threshold" in CLI_VARIANTS[variant]]
+    i = list(CLI_VARIANTS).index(variant) * 2
+    # each rank's -v log (the tournament's thresholds among its lines)
+    ranks_log = "".join(f"\n--- rank {r} ---\n{logs[i + r]}" for r in range(2))
     names = sorted(os.listdir(want))
     assert any(n.endswith("edges") for n in names) and any(n.endswith("outliers") for n in names)
-    assert sorted(os.listdir(d / variant / "rank0")) == names
+    assert sorted(os.listdir(d / variant / "rank0")) == names, ranks_log
     assert not (d / variant / "rank1").exists()  # only rank 0 writes
     for n in names:
-        assert (d / variant / "rank0" / n).read_bytes() == (want / n).read_bytes(), n
-    i = list(CLI_VARIANTS).index(variant) * 2
+        assert (d / variant / "rank0" / n).read_bytes() == (want / n).read_bytes(), n + ranks_log
     for r in range(2):
         assert f"rank {r} of 2 on cpu (gloo backend)" in logs[i + r]
         assert "mesh rows x samples = " + ("(1, 2)" if "2d" in variant else "(2, 1)") in logs[i + r]
