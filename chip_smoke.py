@@ -116,7 +116,15 @@ Phases (each raises on failure; nothing is caught):
      B2 once per row not in F, summed over the ranks, writes phase 5's
      bytes and removes F; a copy of F resumed by one process does the
      same; the kill point, rows and edges saved, each resumed run's
-     sweep_s and checkpoint_s, the launches and the wall times.
+     sweep_s and checkpoint_s, the launches and the wall times;
+ 13. the bench (run after phase 11): ``python -m spydrpick_torch.bench`` in
+     a process of its own at its default shape (phase 5's alignment and
+     engine) with BENCH_E2E_RUNS=5 warm end-to-end runs; its JSON line must
+     name the card and power limit of phase 1 and the cuda backend, its
+     end-to-end edges and threshold must be phase 5's, every warm run must
+     launch K1 and B2 once per block-row (60) and B3, B4 and B5 never, and
+     its sweep minimum must lie within 2x of phase 5's sweep_s; its
+     headline figures are printed on one line.
 Ranks of phases 8, 9 and 12 are this script run as ``chip_smoke.py --rank
 ARGS``: ``cli.main(ARGS)``, then the launch counts as a JSON line; each
 has a time limit, and a rank that fails fails the phase.  Phase 12's
@@ -175,6 +183,8 @@ WIDE_MI_VALUES = 1_000_000  # phase 10's CLI runs: the tournament's target edge 
 WIDE_STORE = 1 << 27  # phase 11's second sweep: a store that never grows at L_WIDE
 RECOUNT_ROWS = 6  # phase 11: block-rows recounted in float64 besides the first two and reruns
 REFERENCE_LOG = "scripts/results_r5/bench_1m_width_final.json"  # the reference's 1M run
+BENCH_E2E_RUNS = 5  # phase 13: warm end-to-end runs of the bench (PERF.md's median rule)
+BENCH_TIMEOUT = 300  # seconds for phase 13's bench process
 
 
 def main_flags(fasta, wfile):
@@ -907,7 +917,7 @@ def phase_main(dev, td, fasta, wfile, S=S_BENCH, L=L_BENCH):
           f"threshold {thr:.6f}, {n_edges} edges, top couplings row {' '.join(first)}")
     print("# stage seconds: " + ", ".join(f"{k} {v}" for k, v in stages.items()))
     print(f"# peak device memory {peak / 2**30:.2f} GiB; launches {launches}", flush=True)
-    return launches, out_dir, float(stages["sweep_s"])
+    return launches, out_dir, float(stages["sweep_s"]), thr, n_edges
 
 
 def pipeline_engine(dev, fasta, wfile):
@@ -1078,23 +1088,14 @@ def sweep_seconds(log):
             float(re.search(r"checkpoint saves: ([\d.]+)s", log).group(1)))
 
 
-LAUNCH_COUNTERS = ("mi_tile_single", "mi_tile_dual", "row_select", "crosstab_tile",
-                   "mi_epilogue")
-
-
-def counters():
-    from spydrpick_torch.ops import compact, mi_kernels
-
-    return {name: getattr(compact if name == "row_select" else mi_kernels, name)
-            for name in LAUNCH_COUNTERS}
-
-
 def rank_main(argv, kill_after_saves: int | None = None) -> int:
     """One rank of a sharded CLI run: ``cli.main(argv)``, then its launch
     counts as the last line.  With ``kill_after_saves`` k the process
     ends at once, with KILLED_RC, right after its k-th checkpoint save
     returns (only process 0 saves)."""
-    fns = counters()
+    from spydrpick_torch.bench import kernel_counters
+
+    fns = kernel_counters()
     for fn in fns.values():
         fn.launches = 0
     from spydrpick_torch import cli
@@ -1330,7 +1331,9 @@ def phase_samples_sharded(dev, td, S=S_BENCH, L=L_SAMPLE_SHARDED):
 def wide_sweep(engine, thr):
     """``engine.sweep(thr)`` with K1, B3 and B2 counted from 0: the edges
     and (seconds, timings, peak device memory in GiB, launches)."""
-    fns = counters()
+    from spydrpick_torch.bench import kernel_counters
+
+    fns = kernel_counters()
     for fn in fns.values():
         fn.launches = 0
     torch.cuda.synchronize()
@@ -1670,6 +1673,49 @@ def phase_full_width(dev, S=S_WIDE, L=L_WIDE):
     return dt, tm, gib
 
 
+def phase_bench(smi, main_thr, main_edges, main_sweep_s, L=L_BENCH):
+    """Phase 13: ``python -m spydrpick_torch.bench`` at its default shape
+    with BENCH_E2E_RUNS warm runs, held to phases 1 and 5."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    env["BENCH_E2E_RUNS"] = str(BENCH_E2E_RUNS)
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "spydrpick_torch.bench"], env=env,
+                         cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                         text=True, timeout=BENCH_TIMEOUT)
+    wall = time.perf_counter() - t0
+    last = (res.stdout.strip().splitlines() or [""])[-1]
+    if res.returncode != 0 or not last.startswith("{"):
+        raise AssertionError(f"bench: rc {res.returncode}\n{res.stdout[-3000:]}\n"
+                             f"{res.stderr[-3000:]}")
+    line = json.loads(last)
+    cfg, e2e = line["config"], line["config"]["end_to_end_s"]
+    name, limit = (x.strip() for x in smi.rsplit(",", 1))
+    want = {"backend": "cuda", "device": name, "power_limit": limit}
+    got = {k: cfg[k] for k in want}
+    if got != want:
+        raise AssertionError(f"bench ran on {got}, phase 1 saw {want}")
+    if (e2e["edges"], f"{e2e['mi_threshold']:.6f}") != (main_edges, f"{main_thr:.6f}"):
+        raise AssertionError(f"bench end to end: {e2e['edges']} edges at "
+                             f"{e2e['mi_threshold']}, phase 5: {main_edges} at {main_thr}")
+    n_rows = -(-L // TILE)
+    per_row = {"mi_tile_single": n_rows, "row_select": n_rows, "mi_tile_dual": 0,
+               "crosstab_tile": 0, "mi_epilogue": 0}
+    if len(e2e["launches_all"]) != BENCH_E2E_RUNS or any(
+            run != per_row for run in e2e["launches_all"]):
+        raise AssertionError(f"bench warm runs launched {e2e['launches_all']}, expected "
+                             f"{per_row} each")
+    if not main_sweep_s / 2 <= cfg["sweep_seconds"] <= 2 * main_sweep_s:
+        raise AssertionError(f"bench sweep {cfg['sweep_seconds']} s against phase 5's "
+                             f"sweep_s {main_sweep_s} s")
+    print(f"# bench S={cfg['samples']} L={cfg['loci']} {cfg['int8_mode']} on {cfg['device']}, "
+          f"{cfg['power_limit']}: {line['value']:.1f} column pairs/s (sweep "
+          f"{cfg['sweep_seconds']} s, {cfg['sweep_method']}; {cfg['edges']} edges at "
+          f"{cfg['threshold']}; sweep peak {cfg['sweep_peak_gib']} GiB); end to end median "
+          f"{e2e['total_s']} s of {e2e['total_s_all']} (cold {e2e['cold_total_s']} s), "
+          f"{e2e['edges']} edges at {e2e['mi_threshold']} as phase 5, peak GiB "
+          f"{e2e['peak_gib_all']}; K1 and B2 {n_rows} per warm run; {wall:.1f} s", flush=True)
+
+
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--rank":
         return rank_main(sys.argv[2:])
@@ -1683,7 +1729,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # the f32 yardsticks and plain versions
     from spydrpick_torch.stage_profile import bench_alignment, write_inputs
 
-    phase_env()
+    smi = phase_env()
     k1_err = phase_k1(dev)
     b3_err = phase_b3(dev)
     b4_err, b5_err = phase_split(dev)
@@ -1694,7 +1740,8 @@ def main() -> int:
         k1_main_err, k1, b3_main_err, b3, split_err, split_ms = phase_k1_main(dev, fasta, wfile)
         b2_err, b2 = phase_b2(dev, fasta, wfile)
         phase_parity(dev, td)
-        launches, main_out, main_sweep_s = phase_main(dev, td, fasta, wfile)
+        launches, main_out, main_sweep_s, main_thr, main_edges = phase_main(dev, td, fasta,
+                                                                             wfile)
         dual_launches, dual_err = phase_dual_sweep(dev, fasta, wfile)
         phase_checkpoint(dev, td, fasta, wfile, main_out, main_sweep_s)
         phase_rows_sharded(td, fasta, wfile, main_out)
@@ -1706,6 +1753,10 @@ def main() -> int:
     t_wide = time.perf_counter()
     phase_full_width(dev)
     print(f"# phase 11 in {time.perf_counter() - t_wide:.1f} s; chip_smoke so far "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    t_bench = time.perf_counter()
+    phase_bench(smi, main_thr, main_edges, main_sweep_s)
+    print(f"# phase 13 in {time.perf_counter() - t_bench:.1f} s; chip_smoke in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

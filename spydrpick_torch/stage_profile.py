@@ -56,13 +56,17 @@ from collections import defaultdict
 import numpy as np
 
 
-def bench_alignment(S: int, L: int, seed: int = 0):
+def bench_alignment(S: int, L: int, seed: int = 0, rng: np.random.Generator | None = None,
+                    weighted: bool = True):
     """The bench.py generator (bench.py:158-169): uniform states, 5% gaps,
-    weights uniform in [0.1, 1)."""
-    rng = np.random.default_rng(seed)
+    weights uniform in [0.1, 1), or None and no draw unless ``weighted``
+    (bench.py's ``BENCH_UNIT_WEIGHTS=1``).  It draws from ``rng`` when one
+    is given (bench.py draws its threshold pairs from the same generator
+    next), else from ``numpy.random.default_rng(seed)``."""
+    rng = np.random.default_rng(seed) if rng is None else rng
     codes = rng.integers(0, 4, size=(S, L)).astype(np.uint8)
     codes[rng.random((S, L)) < 0.05] = 4
-    return codes, rng.random(S) * 0.9 + 0.1
+    return codes, (rng.random(S) * 0.9 + 0.1 if weighted else None)
 
 
 def write_inputs(td: str, name: str, codes: np.ndarray, weights: np.ndarray):
