@@ -56,7 +56,8 @@ Phases (each raises on failure; nothing is caught):
   5. the main path at the size users run it: ``spydrpick_torch.cli.main``
      on the weighted S=3000 x L=30720 alignment (the bench.py "medium"
      generator) with the automatic threshold; K1 and B2 must each have
-     been launched once per block-row (60);
+     been launched once per block-row (60), and its files must be
+     byte-identical to the ones pinned in ``MAIN_OUTPUTS`` (sha256);
   6. the library's exact-wog sweep at that size:
      ``MIEngine(al, EngineConfig(wog_fetch="full")).sweep(thr)`` at phase
      5's threshold launches B3 and B2 once per block-row (60) and K1
@@ -64,6 +65,11 @@ Phases (each raises on failure; nothing is caught):
      the lazy sweep's outlier candidates (wog from the pairs path) agree
      within 1e-5, and edges whose columns have no gaps carry wog == mi;
      both sweeps' times and peak device memory;
+     b. the pipeline's edge sort on the card (``EdgeSet.sort_desc_on``)
+        against numpy's ``EdgeSet.sort_desc``: the same permutation on the
+        lazy sweep's edges (phase 5's), on them shuffled with MI quantised
+        to steps of 0.005, and on 2^23 + 30,000 edges over 2^20 columns
+        where numpy lexsorts its tied spans; both times each;
   7. checkpoint and resume at that size: a checkpointed sweep of the
      engine ``run_pipeline`` builds is killed from its progress callback
      after block-row 24; ``cli.main`` with phase 5's flags plus
@@ -108,7 +114,11 @@ Phases (each raises on failure; nothing is caught):
      +-1e-5 band of this sweep's count at the MI where this sweep reaches
      the reference's whole count 87,227,673, that MI's distance below
      0.084647 printed; the sweep's seconds, column pairs/s, expansion
-     seconds, items, rows swept again and peak memory;
+     seconds, items, rows swept again and peak memory (fetch_s among its
+     phases); then the pipeline's device sort of its edges, its time and
+     peak memory with the engine held, checked on the card
+     (``check_desc_order``: the sweep's edges, mi and wog once each, in
+     descending mi with ties by (ipos, jpos));
  12. the checkpointed row-sharded CLI (run after phase 9, since it needs
      phase 5's files): phase 5's flags with ``--sharded --checkpoint F
      --checkpoint-every 8`` as two ranks, process 0 ended right after its
@@ -124,7 +134,8 @@ Phases (each raises on failure; nothing is caught):
      end-to-end edges and threshold must be phase 5's, every warm run must
      launch K1 and B2 once per block-row (60) and B3, B4 and B5 never, and
      its sweep minimum must lie within 2x of phase 5's sweep_s; its
-     headline figures are printed on one line.
+     headline figures, its stage medians and the device's busy share of
+     its traced warm run (in (0, 1]) are printed.
 Ranks of phases 8, 9 and 12 are this script run as ``chip_smoke.py --rank
 ARGS``: ``cli.main(ARGS)``, then the launch counts as a JSON line; each
 has a time limit, and a rank that fails fails the phase.  Phase 12's
@@ -144,6 +155,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import io
 import json
 import os
@@ -183,8 +195,21 @@ WIDE_MI_VALUES = 1_000_000  # phase 10's CLI runs: the tournament's target edge 
 WIDE_STORE = 1 << 27  # phase 11's second sweep: a store that never grows at L_WIDE
 RECOUNT_ROWS = 6  # phase 11: block-rows recounted in float64 besides the first two and reruns
 REFERENCE_LOG = "scripts/results_r5/bench_1m_width_final.json"  # the reference's 1M run
+# phase 5's files (sha256), as the CLI wrote them on an H100 before its
+# sort, tournament and fetch moved onto the card (python -m
+# spydrpick_torch.host_ab): those moves change no output byte
+MAIN_OUTPUTS = {
+    "bench.3000x30720.spydrpick_couplings.1-based.3100919edges":
+        "bcc0b9343967778193bff15d8e52e1feeb2c0cc2f8099ade0c3fd37e216d0fc6",
+    "bench.3000x30720.spydrpick_couplings.1-based.outliers":
+        "4a7b5540480cc126e11809c2c21273efd42ee180be4b3abd1a15a678e002c134",
+    "bench.outlier_nodes.fasta":
+        "e560354968724f0cabe8466a3e84f7e67725b663f184e34499fd9e9921043a5e",
+}
 BENCH_E2E_RUNS = 5  # phase 13: warm end-to-end runs of the bench (PERF.md's median rule)
 BENCH_TIMEOUT = 300  # seconds for phase 13's bench process
+BENCH_STAGES = ("preprocess_s", "engine_build_s", "threshold_s", "sweep_s", "sort_s", "aracne_s",
+                "write_s")
 
 
 def main_flags(fasta, wfile):
@@ -905,6 +930,12 @@ def phase_main(dev, td, fasta, wfile, S=S_BENCH, L=L_BENCH):
     for f in couplings + outliers:
         if os.path.getsize(os.path.join(out_dir, f)) == 0:
             raise AssertionError(f"empty output {f}")
+    digests = {}
+    for f in files:
+        with open(os.path.join(out_dir, f), "rb") as fh:
+            digests[f] = hashlib.sha256(fh.read()).hexdigest()
+    if digests != MAIN_OUTPUTS:
+        raise AssertionError(f"main path outputs {digests}, expected {MAIN_OUTPUTS}")
     with open(os.path.join(out_dir, couplings[0])) as f:
         first = f.readline().split()
     if len(first) != 5 or not np.isfinite(float(first[4])):
@@ -917,6 +948,7 @@ def phase_main(dev, td, fasta, wfile, S=S_BENCH, L=L_BENCH):
           f"threshold {thr:.6f}, {n_edges} edges, top couplings row {' '.join(first)}")
     print("# stage seconds: " + ", ".join(f"{k} {v}" for k, v in stages.items()))
     print(f"# peak device memory {peak / 2**30:.2f} GiB; launches {launches}", flush=True)
+    print(f"# main path files byte-identical to the ones pinned (sha256): {digests}", flush=True)
     return launches, out_dir, float(stages["sweep_s"]), thr, n_edges
 
 
@@ -990,7 +1022,67 @@ def phase_dual_sweep(dev, fasta, wfile, L=L_BENCH):
           f"gaps (wog == mi); max|wog - mi| {float(np.max(np.abs(full.mi_wog - full.mi))):.4f}; "
           f"sweep lazy {lazy_s:.3f} s, dual {full_s:.3f} s; peak device memory lazy "
           f"{lazy_gib:.3f} GiB, dual {full_gib:.3f} GiB; launches {launches}", flush=True)
-    return launches, err
+    return launches, err, lazy
+
+
+SORT_FIELDS = ("ipos", "jpos", "mi", "mi_wog")
+
+
+def sorts_agree(label, edges, dev):
+    """(numpy seconds, device seconds, tied neighbours): numpy's
+    ``EdgeSet.sort_desc`` and the pipeline's device sort
+    (``EdgeSet.sort_desc_on``, timed after one warm-up call) must give the
+    same arrays in the same dtypes, i.e. the same permutation (the pairs
+    are unique)."""
+    t0 = time.perf_counter()
+    want = edges.sort_desc()
+    np_s = time.perf_counter() - t0
+    edges.sort_desc_on(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = edges.sort_desc_on(dev)
+    dev_s = time.perf_counter() - t0
+    for f in SORT_FIELDS:
+        a, b = getattr(got, f), getattr(want, f)
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise AssertionError(f"device sort of {label}: {f} differs from numpy sort_desc's")
+    return np_s, dev_s, int(np.count_nonzero(want.mi[1:] == want.mi[:-1]))
+
+
+def lexsort_branch_edges(rng):
+    """Edges over L = 2^20 columns with more distinct MI values than
+    (2^63 - 1) // L^2, and tied spans: numpy's sort_desc lexsorts there."""
+    from spydrpick_torch.engine.solver import EdgeSet
+
+    L, E = 1 << 20, (1 << 23) + 30_000
+    k = np.arange(E - 1, dtype=np.int64)
+    i = np.append(k % (L - 16), 0)
+    j = np.append(k % (L - 16) + 1 + k // (L - 16), L - 1)
+    perm = rng.permutation(E)
+    mi = rng.random(E) + 0.01
+    mi[:20_000] = mi[20_000:40_000]
+    return EdgeSet(i[perm], j[perm], mi, mi, np.zeros(L))
+
+
+def phase_sort(dev, edges):
+    """Phase 6b: the pipeline's device sort against numpy ``sort_desc``
+    on phase 5's edges (phase 6's lazy sweep at phase 5's threshold), on
+    them shuffled with MI quantised to steps of 0.005 (ties everywhere)
+    and on the 2^20-column set where numpy takes its lexsort branch: the
+    same permutation each time, with both times."""
+    from spydrpick_torch.engine.solver import EdgeSet
+
+    rng = np.random.default_rng(12)
+    perm = rng.permutation(edges.n_edges)
+    quant = EdgeSet(edges.ipos[perm], edges.jpos[perm], np.round(edges.mi[perm] * 200) / 200,
+                    edges.mi_wog[perm], edges.colmax)
+    cases = (("phase 5's edges", edges), ("those shuffled, MI in steps of 0.005", quant),
+             ("2^20 columns, numpy's lexsort branch", lexsort_branch_edges(rng)))
+    for label, e in cases:
+        np_s, dev_s, tied = sorts_agree(label, e, dev)
+        print(f"# device sort, {label}: {e.n_edges} edges, {tied} tied neighbours; permutation "
+              f"identical to numpy sort_desc's; numpy {np_s:.3f} s, device {dev_s:.3f} s",
+              flush=True)
 
 
 def cli_run(args, label):
@@ -1557,6 +1649,34 @@ def check_recount(edges, engine, w64, rows, thr):
     return n_pairs, dmax, n32, n64
 
 
+def check_desc_order(edges, got, dev):
+    """On the card: ``got`` holds the edges of ``edges``, each with its
+    mi and wog, once each (its keys ipos * 2^32 + jpos found among the
+    sweep's, which are unique, and the sources a permutation), in
+    descending mi with ties by (ipos, jpos) ascending."""
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    key = lambda e: (t(e.ipos) << 32) | t(e.jpos)
+    ko, oi = torch.sort(key(edges))
+    ks = key(got)
+    n = len(ko)
+    if len(ks) != n or not bool((ko[1:] > ko[:-1]).all()):
+        raise AssertionError("1M sort: edge counts differ, or the sweep repeats a pair")
+    pos = torch.searchsorted(ko, ks).clamp_(max=max(n - 1, 0))
+    if not torch.equal(ko[pos], ks):
+        raise AssertionError("1M sort: an edge of the sorted set is not the sweep's")
+    src = oi[pos]
+    del ko, oi, pos
+    if not torch.equal(torch.sort(src).values, torch.arange(n, device=dev)):
+        raise AssertionError("1M sort: the sorted set is not a permutation of the sweep's")
+    for f in ("mi", "mi_wog"):
+        if not torch.equal(t(getattr(got, f)), t(getattr(edges, f))[src]):
+            raise AssertionError(f"1M sort: an edge's {f} moved apart from its pair")
+    m = t(got.mi)
+    ok = (m[1:] < m[:-1]) | ((m[1:] == m[:-1]) & (ks[1:] > ks[:-1]))
+    if not bool(ok.all()):
+        raise AssertionError("1M sort: not in descending mi with ties by (ipos, jpos)")
+
+
 def phase_full_width(dev, S=S_WIDE, L=L_WIDE):
     """Phase 11: the 1M-column width shape, codes storage and j-windows,
     swept at WIDE_THRESHOLD - WIDE_MARGIN from the default store (which
@@ -1611,6 +1731,14 @@ def phase_full_width(dev, S=S_WIDE, L=L_WIDE):
             raise AssertionError(f"1M sweep: {f} from the grown store differs from the "
                                  f"{WIDE_STORE}-slot store's")
     del big
+    # the pipeline's sort of these edges, its engine still held as in a
+    # pipeline run: its time and peak device memory
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_s = time.perf_counter()
+    ordered = edges.sort_desc_on(dev)
+    sort_s = time.perf_counter() - t_s
+    sort_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     t_rc = time.perf_counter()
     rows = sorted({0, T} | set(again) | set(
         (np.random.default_rng(0).choice(L // T, RECOUNT_ROWS, replace=False) * T).tolist()))
@@ -1624,6 +1752,14 @@ def phase_full_width(dev, S=S_WIDE, L=L_WIDE):
         raise AssertionError(f"1M sweep: max |mi - float64| {d64} over the band")
     del engine
     torch.cuda.empty_cache()
+    t_ck = time.perf_counter()
+    check_desc_order(edges, ordered, dev)
+    del ordered
+    torch.cuda.empty_cache()
+    print(f"# 1M width: the pipeline's device sort of the {edges.n_edges} edges in {sort_s:.2f} s "
+          f"(engine held), peak device memory {sort_gib:.3f} GiB; checked on the card in "
+          f"{time.perf_counter() - t_ck:.2f} s: the sweep's edges, mi and wog once each, in "
+          "descending mi with ties by (ipos, jpos)", flush=True)
     # the reference's count: the MI this sweep's WIDE_EDGES largest exceed,
     # and each printed group's count there against the reference's
     k = edges.n_edges - WIDE_EDGES - 1
@@ -1704,6 +1840,9 @@ def phase_bench(smi, main_thr, main_edges, main_sweep_s, L=L_BENCH):
             run != per_row for run in e2e["launches_all"]):
         raise AssertionError(f"bench warm runs launched {e2e['launches_all']}, expected "
                              f"{per_row} each")
+    busy, tr = e2e["busy_share"], e2e["traced_run"]
+    if not isinstance(busy, float) or not 0 < busy <= 1:
+        raise AssertionError(f"bench: the traced warm run's busy share is {busy}")
     if not main_sweep_s / 2 <= cfg["sweep_seconds"] <= 2 * main_sweep_s:
         raise AssertionError(f"bench sweep {cfg['sweep_seconds']} s against phase 5's "
                              f"sweep_s {main_sweep_s} s")
@@ -1714,6 +1853,12 @@ def phase_bench(smi, main_thr, main_edges, main_sweep_s, L=L_BENCH):
           f"{e2e['total_s']} s of {e2e['total_s_all']} (cold {e2e['cold_total_s']} s), "
           f"{e2e['edges']} edges at {e2e['mi_threshold']} as phase 5, peak GiB "
           f"{e2e['peak_gib_all']}; K1 and B2 {n_rows} per warm run; {wall:.1f} s", flush=True)
+    print("# bench stage medians (s): " + ", ".join(f"{k} {e2e[k]}" for k in BENCH_STAGES)
+          + f"; sweep phases {e2e['sweep_phases']}; aracne phases {e2e['aracne_phases']}; "
+          f"write phases {e2e['write_phases']}", flush=True)
+    print(f"# bench traced warm run: device busy share {busy} (wall {tr['wall_s']} s, busy "
+          f"{tr['busy_s']} s, lead-in {tr['lead_s']} s, longest gap {tr['max_gap_s']} s)",
+          flush=True)
 
 
 def main() -> int:
@@ -1742,7 +1887,9 @@ def main() -> int:
         phase_parity(dev, td)
         launches, main_out, main_sweep_s, main_thr, main_edges = phase_main(dev, td, fasta,
                                                                              wfile)
-        dual_launches, dual_err = phase_dual_sweep(dev, fasta, wfile)
+        dual_launches, dual_err, lazy = phase_dual_sweep(dev, fasta, wfile)
+        phase_sort(dev, lazy)
+        del lazy
         phase_checkpoint(dev, td, fasta, wfile, main_out, main_sweep_s)
         phase_rows_sharded(td, fasta, wfile, main_out)
         split_launches = phase_samples_sharded(dev, td)

@@ -41,7 +41,12 @@ temporary directory, ``run_pipeline`` with the automatic threshold and
 BENCH_TILE reaches them, as in bench.py).  ``end_to_end_s``
 holds each stage's median over the warm runs (bench.py runs one), every
 warm run's total (``total_s_all``), peak device memory and kernel
-launches, the cold run's totals, the edge count and the threshold.
+launches, the cold run's totals, the edge count and the threshold.  On a
+card one more warm run goes under torch.profiler (``stage_profile.
+traced``): ``busy_share`` is the share of its wall time in which the
+device ran a kernel, copy or fill, and ``traced_run`` that run's wall,
+busy, lead-in and longest gap (seconds); the tracing slows that run, so
+it counts in no median.
 
 The run needs a GPU unless ``SPYDRPICK_TORCH_DEVICE=cpu`` asks for the CPU
 (``device.py``); without either it exits 1 and prints no JSON line.  On
@@ -157,6 +162,8 @@ def end_to_end(al, tile: int, runs: int, dev: torch.device) -> dict:
         print("# e2e: writing fasta", flush=True)
         weights = al.weights if al.weights is not None else np.ones(al.n_samples)
         fasta, wfile = write_inputs(td, "bench", al.codes, weights)
+        opts = lambda out: PipelineOptions(alignmentfile=fasta, mi_threshold=-1.0, seed=1,
+                                           sample_weights=wfile, tile=tile, output_dir=out)
         warm, results = [], []
         for run in range(runs + 1):
             label = "cold, auto threshold" if run == 0 else f"warm {run}/{runs}"
@@ -168,9 +175,7 @@ def end_to_end(al, tile: int, runs: int, dev: torch.device) -> dict:
             synchronize(dev)
             reset_peak(dev)
             t0 = time.perf_counter()
-            res = run_pipeline(PipelineOptions(alignmentfile=fasta, mi_threshold=-1.0, seed=1,
-                                               sample_weights=wfile, tile=tile,
-                                               output_dir=out), timings=tm)
+            res = run_pipeline(opts(out), timings=tm)
             wall = time.perf_counter() - t0
             shutil.rmtree(out)
             if run == 0:
@@ -182,9 +187,21 @@ def end_to_end(al, tile: int, runs: int, dev: torch.device) -> dict:
             results.append((res.edges.n_edges, res.mi_threshold))
             print(f"# e2e warm {run}: total {tm['total_s']:.3f} s, {res.edges.n_edges} edges",
                   flush=True)
+        traced = None
+        if dev.type == "cuda":
+            from spydrpick_torch.stage_profile import traced as trace_region
+
+            print("# e2e: one more warm run, traced", flush=True)
+            out = os.path.join(td, "traced")
+            traced = trace_region("e2e", lambda: run_pipeline(opts(out)), None)
+            shutil.rmtree(out)
     if len(set(results)) != 1:
         raise RuntimeError(f"warm end-to-end runs disagree: (edges, threshold) {results}")
     e2e = median_of(warm)
+    e2e["busy_share"] = NOT_MEASURED if traced is None else _r(traced["busy_share"])
+    e2e["traced_run"] = NOT_MEASURED if traced is None else {
+        k: {n: _r(t) for n, t in v.items()} if isinstance(v, dict) else _r(v)
+        for k, v in traced.items()}
     e2e["runs"] = runs
     e2e["total_s_all"] = [_r(tm["total_s"]) for tm in warm]
     e2e["peak_gib_all"] = [tm["peak_gib"] for tm in warm]
@@ -193,8 +210,8 @@ def end_to_end(al, tile: int, runs: int, dev: torch.device) -> dict:
     e2e["cold_threshold_s"] = _r(cold[1].get("threshold_s", 0.0))
     e2e["cold_sweep_s"] = _r(cold[1].get("sweep_s", 0.0))
     e2e["sweep_phases"] = median_of([tm["sweep_phases"] for tm in warm])
-    e2e["aracne_phases"] = (median_of([tm["aracne_phases"] for tm in warm])
-                            if "aracne_phases" in warm[0] else {})
+    for phases in ("aracne_phases", "write_phases"):
+        e2e[phases] = median_of([tm[phases] for tm in warm]) if phases in warm[0] else {}
     e2e["edges"] = int(results[0][0])
     e2e["mi_threshold"] = round(results[0][1], 6)
     return e2e

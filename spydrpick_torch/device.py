@@ -10,17 +10,22 @@ the host.  A process of a sharded run (``torch.distributed`` initialised)
 drives ``cuda:(local rank % device count)``, any other process
 ``cuda:0``.  On the CPU the kernel wrappers run their plain PyTorch
 versions (ops/mi_kernels.py, ops/compact.py); on a CUDA tensor they launch
-their kernels.
+their kernels.  ``to_host`` is the way large results (the sweep's edges,
+the sorted edge set) come back from a card: through pinned memory.
 """
 
 from __future__ import annotations
 
 import os
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 DEVICE_ENV = "SPYDRPICK_TORCH_DEVICE"
+# elements that ``to_host`` gathers and casts on a card per step: bounds
+# its device temporaries to 2^24 elements of one part at a time
+HOST_CHUNK = 1 << 24
 
 
 def local_rank() -> int:
@@ -64,3 +69,29 @@ def synchronize(device: torch.device) -> None:
     host timestamp taken next covers it."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def to_host(parts, order: torch.Tensor | None = None, dtypes=None) -> list[np.ndarray]:
+    """Host numpy copies of the equal-length 1-D tensors ``parts``, each
+    taken in ``order`` (an index tensor on their device) when given and
+    cast to its entry of ``dtypes`` (None: its own dtype).  On a card each
+    part is gathered and cast there, HOST_CHUNK elements at a time, and
+    every chunk is copied without blocking into a pinned host tensor,
+    which the returned array is a view of: the data cross once, already
+    widened, with one synchronize at the end.  On the CPU: plain indexing
+    and casts, always into new memory."""
+    dtypes = [None] * len(parts) if dtypes is None else dtypes
+    dtypes = [p.dtype if dt is None else dt for p, dt in zip(parts, dtypes)]
+    if not parts or parts[0].device.type != "cuda":
+        return [(p if order is None else p[order]).to(dt, copy=True).numpy()
+                for p, dt in zip(parts, dtypes)]
+    n = len(parts[0]) if order is None else len(order)
+    outs = [torch.empty(n, dtype=dt, pin_memory=True) for dt in dtypes]
+    for lo in range(0, n, HOST_CHUNK):
+        hi = min(n, lo + HOST_CHUNK)
+        idx = None if order is None else order[lo:hi]
+        for p, out in zip(parts, outs):
+            x = p[lo:hi] if idx is None else p[idx]
+            out[lo:hi].copy_(x.to(out.dtype), non_blocking=True)
+    synchronize(parts[0].device)
+    return [out.numpy() for out in outs]

@@ -50,9 +50,16 @@ def params_key(statics, threshold: float) -> str:
     )
 
 
+def concat(parts: list[np.ndarray], dtype) -> np.ndarray:
+    """The parts end to end: the one part itself, uncopied, or an empty
+    array of ``dtype`` when there is none."""
+    if len(parts) == 1:
+        return parts[0]
+    return np.concatenate(parts) if parts else np.empty(0, dtype)
+
+
 def save(path: str, ckpt: SweepCheckpoint) -> None:
     """Atomic save (tmp + rename)."""
-    cat = lambda xs, dt: np.concatenate(xs) if xs else np.empty(0, dt)
     fd, tmp = tempfile.mkstemp(dir=os.path.dirname(os.path.abspath(path)) or ".",
                                suffix=".ckpt.tmp")
     os.close(fd)
@@ -61,10 +68,10 @@ def save(path: str, ckpt: SweepCheckpoint) -> None:
         params_key=np.array(ckpt.params_key),
         done_rows=np.array(sorted(ckpt.done_rows), dtype=np.int64),
         colmax=ckpt.colmax,
-        ipos=cat(ckpt.ipos, np.int64),
-        jpos=cat(ckpt.jpos, np.int64),
-        mi=cat(ckpt.mi, np.float64),
-        mi_wog=cat(ckpt.mi_wog, np.float64),
+        ipos=concat(ckpt.ipos, np.int64),
+        jpos=concat(ckpt.jpos, np.int64),
+        mi=concat(ckpt.mi, np.float64),
+        mi_wog=concat(ckpt.mi_wog, np.float64),
     )
     # np.savez appends .npz to the filename
     os.replace(tmp + ".npz", path)

@@ -23,7 +23,9 @@ sweeps the rows since that check again (max is idempotent, so colmax
 takes no harm): overflow never changes a result.  The edges then reach
 the host in sweep order (block-rows in the order visited, i ascending
 inside one, j ascending inside a row, whatever its windows), restored on
-the device by one sort of the store (``EdgeStore.ordered``).
+the device by one sort of the store (``EdgeStore.sweep_order``), widened
+there to int64 and float64 and copied once through pinned memory
+(``device.to_host``).
 ``--edge-capacity`` is accepted but unused.
 
 One-hot residency (``EngineConfig.onehot_storage``, the reference's
@@ -75,7 +77,7 @@ import torch
 
 from spydrpick_torch.core.alignment import Alignment
 from spydrpick_torch.core.alphabet import N_STATES
-from spydrpick_torch.device import default_device, synchronize
+from spydrpick_torch.device import default_device, synchronize, to_host
 from spydrpick_torch.engine import checkpoint as ckpt_mod
 from spydrpick_torch.ops.compact import EdgeStore, row_select
 from spydrpick_torch.ops.mi import mi_from_crosstabs
@@ -209,6 +211,38 @@ class EdgeSet:
                 order[tied] = sub
         return EdgeSet(self.ipos[order], self.jpos[order], self.mi[order],
                        self.mi_wog[order], self.colmax)
+
+    def sort_desc_on(self, device: torch.device | str) -> "EdgeSet":
+        """``sort_desc``'s result from one sort on ``device``
+        (``desc_order``): the four arrays go to the device, are permuted
+        there and come back through pinned memory (``to_host``), each in
+        its own dtype; colmax stays.  The pipeline's sort, on the card
+        and on the CPU alike."""
+        dev = torch.device(device)
+        cols = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                for x in (self.ipos, self.jpos, self.mi, self.mi_wog)]
+        got = to_host(cols, desc_order(*cols[:3]))
+        return EdgeSet(*got, self.colmax)
+
+
+def desc_order(ipos: torch.Tensor, jpos: torch.Tensor, mi: torch.Tensor) -> torch.Tensor:
+    """The permutation of ``EdgeSet.sort_desc``, on mi's device:
+    descending mi, ties broken by (ipos, jpos) (Graph::sort).  Two stable
+    sorts: the unique key ``ipos * 2^32 + jpos`` ascending, then mi
+    descending in that order, which keeps the key order inside every run
+    of equal mi; the key stays below 2^63 for any count of distinct
+    values, so sort_desc's lexsort branch has no counterpart.  mi is
+    sorted in its own dtype (the pipeline's float64, widened exactly from
+    the store's f32, so the order of the f32 values).  NaN and -0.0 are
+    refused: numpy and torch may place them differently, and a sweep's
+    edges hold neither (mi > threshold >= 0)."""
+    if len(mi) == 0:
+        return torch.zeros(0, dtype=torch.int64, device=mi.device)
+    if bool((torch.isnan(mi) | ((mi == 0) & torch.signbit(mi))).any()):
+        raise ValueError("desc_order: mi holds NaN or -0.0")
+    key = (ipos.to(torch.int64) << 32) | jpos.to(torch.int64)
+    order = torch.argsort(key, stable=True)
+    return order[torch.argsort(mi[order], descending=True, stable=True)]
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -660,37 +694,57 @@ class MIEngine:
         return codes_xtab(d.codes.index_select(1, ipos), d.codes.index_select(1, jpos),
                           d.weights)
 
-    def _pairs(self, fn, ipos, jpos):
-        """Run a pairs core over chunks of explicit pairs, with their
+    def _upload(self, x) -> torch.Tensor:
+        """Host positions as an int64 tensor on the engine's device; to a
+        card through pinned memory without blocking, so that the host
+        never waits for the device's queue."""
+        t = torch.from_numpy(np.ascontiguousarray(x, dtype=np.int64))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def _pairs(self, fn, blocks):
+        """Run a pairs core over the pairs of ``blocks``, an iterable of
+        (ipos, jpos) host arrays read as one stream, with their
         crosstables from ``pairs_table``; returns the per-pair outputs on
-        the device, concatenated."""
-        ii = torch.as_tensor(np.asarray(ipos, dtype=np.int64)).to(self.device)
-        jj = torch.as_tensor(np.asarray(jpos, dtype=np.int64)).to(self.device)
+        the device, concatenated.  The stream is cut into chunks of
+        ``_pairs_chunk`` pairs from its start, whatever its blocks, and
+        each chunk is launched as soon as its pairs have arrived: a pair's
+        f32 sum over samples depends on the chunk it is summed in, so a
+        stream's values are those of its pairs in one block."""
         c = self._pairs_chunk
         outs = []
-        for p in range(0, len(ii), c):
-            i, j = ii[p:p + c], jj[p:p + c]
-            outs.append(fn(self.data, self.statics, i, j, self.pairs_table(i, j)))
+        ii = jj = torch.zeros(0, dtype=torch.int64, device=self.device)
+        for ib, jb in blocks:
+            ii, jj = torch.cat((ii, self._upload(ib))), torch.cat((jj, self._upload(jb)))
+            n = len(ii) // c * c
+            for p in range(0, n, c):
+                i, j = ii[p:p + c], jj[p:p + c]
+                outs.append(fn(self.data, self.statics, i, j, self.pairs_table(i, j)))
+            ii, jj = ii[n:], jj[n:]
+        if len(ii):
+            outs.append(fn(self.data, self.statics, ii, jj, self.pairs_table(ii, jj)))
         if not outs:
             return torch.empty(0, dtype=torch.float32, device=self.device)
         return torch.cat(outs)
 
     def pair_mi(self, ipos: np.ndarray, jpos: np.ndarray) -> np.ndarray:
         """With-gaps MI of explicit position pairs, float64."""
-        return self._pairs(pairs_mi_core, ipos, jpos).cpu().numpy().astype(np.float64)
+        return self._pairs(pairs_mi_core, [(ipos, jpos)]).cpu().numpy().astype(np.float64)
 
     def pair_wog(self, ipos: np.ndarray, jpos: np.ndarray) -> np.ndarray:
         """Effective wo-gaps MI of explicit position pairs, float64."""
-        wog = self._pairs(lambda *a: pairs_mi_dual_core(*a)[1], ipos, jpos)
+        wog = self._pairs(lambda *a: pairs_mi_dual_core(*a)[1], [(ipos, jpos)])
         return wog.cpu().numpy().astype(np.float64)
 
-    def pair_quantiles(self, ipos: np.ndarray, jpos: np.ndarray, iters: int,
-                       n_valid: int, k: int) -> np.ndarray:
+    def pair_quantiles(self, blocks, iters: int, n_valid: int, k: int) -> np.ndarray:
         """(iters,) float64: for each of ``iters`` consecutive samples of
         ``n_valid`` pairs, the ascending order statistic ``k`` of their
         MI — the threshold tournament, with only ``iters`` floats coming
-        back to the host."""
-        mi = self._pairs(pairs_mi_core, ipos, jpos)
+        back to the host.  ``blocks``: the pairs as (ipos, jpos) host
+        arrays, in any blocks (``_pairs``), e.g. each sample as it is
+        drawn."""
+        mi = self._pairs(pairs_mi_core, blocks)
         return pairs_quantile_core(mi, iters, n_valid, k).cpu().numpy().astype(np.float64)
 
     # ------------------------------------------------------------------ #
@@ -821,7 +875,7 @@ class MIEngine:
         t1 = time.perf_counter()
         self._edges_to_host(store, saved, todo, host)
         colmax_h = colmax[:L].cpu().numpy().astype(np.float64)
-        cat = lambda xs, dt: np.concatenate(xs) if xs else np.empty(0, dt)
+        cat = ckpt_mod.concat
         s_i, s_j = cat(host.ipos, np.int64), cat(host.jpos, np.int64)
         s_m = cat(host.mi, np.float64)
         s_w = None if st.wog_lazy else cat(host.mi_wog, np.float64)
@@ -829,7 +883,7 @@ class MIEngine:
         if st.wog_lazy:
             # snapshot and fresh rows alike hold mi placeholders: resolve the
             # candidates of the final colmax over the whole edge set
-            s_w = self._resolve_deferred_wog(s_m, s_i, s_j, colmax_h)
+            s_w = self._resolve_deferred_wog(s_m, s_i, s_j, colmax_h, timings)
         if writer and os.path.exists(checkpoint_path):
             os.unlink(checkpoint_path)  # run completed; stale resume data
         if timings is not None:
@@ -851,29 +905,36 @@ class MIEngine:
         Returns store.checked."""
         hi = store.checked
         if hi > lo:
-            got = [x.cpu().numpy() for x in store.ordered(lo, hi, rows, self.tile, self.Lp)]
-            host.ipos.append(got[0].astype(np.int64))
-            host.jpos.append(got[1].astype(np.int64))
-            mi = got[2].astype(np.float64)
-            host.mi.append(mi)
-            host.mi_wog.append(mi if store.wog is None else got[3].astype(np.float64))
+            parts = [a[lo:hi] for a in store.arrays()]
+            got = to_host(parts, store.sweep_order(lo, hi, rows, self.tile, self.Lp),
+                          [torch.int64, torch.int64, torch.float64, torch.float64])
+            host.ipos.append(got[0])
+            host.jpos.append(got[1])
+            host.mi.append(got[2])
+            host.mi_wog.append(got[2] if store.wog is None else got[3])
         return hi
 
-    def _resolve_deferred_wog(self, s_m, s_i, s_j, colmax):
+    def _resolve_deferred_wog(self, s_m, s_i, s_j, colmax, timings: dict | None = None):
         """wog for the edges at or above the outlier threshold of the final
         colmax (the only wog values the output surface reads,
-        SpydrPick.hpp:100-124); mi for every other edge (solver.py:1862)."""
+        SpydrPick.hpp:100-124); mi for every other edge (solver.py:1862).
+        ``timings`` receives wog_candidates and wog_pairs_s (the pairs
+        path's seconds; the rest of the resolve is host work)."""
         from spydrpick_torch.engine.outliers import outlier_thresholds
 
         s_w = s_m.copy()
-        if s_m.size == 0:
-            return s_w
-        thr_out, _ = outlier_thresholds(colmax)
-        cand = np.flatnonzero(s_m >= thr_out)
-        # in (ipos, jpos) order: a pair's f32 sum over samples depends on
-        # its place in the batch, and sharded or resumed sweeps return
-        # their edges in other orders than one uninterrupted sweep
-        cand = cand[np.lexsort((s_j[cand], s_i[cand]))]
+        cand = np.zeros(0, dtype=np.int64)
+        if s_m.size:
+            thr_out, _ = outlier_thresholds(colmax)
+            cand = np.flatnonzero(s_m >= thr_out)
+            # in (ipos, jpos) order: a pair's f32 sum over samples depends
+            # on its place in the batch, and sharded or resumed sweeps
+            # return their edges in other orders than one uninterrupted sweep
+            cand = cand[np.lexsort((s_j[cand], s_i[cand]))]
+        t0 = time.perf_counter()
         if cand.size:
             s_w[cand] = self.pair_wog(s_i[cand], s_j[cand])
+        if timings is not None:
+            timings["wog_candidates"] = int(cand.size)
+            timings["wog_pairs_s"] = time.perf_counter() - t0
         return s_w

@@ -9,9 +9,17 @@ spydrpick_tpu/engine/threshold.py:33-135, SpydrPick.hpp:171-343).
     stream and takes the ascending order statistic at
     ``floor(percentile * pairs)``; the threshold is the lower median of
     the iterations.
+
+The draws overlap the device work: one worker thread makes them, in
+order, from the one generator, while the caller's thread launches each
+chunk of the pairs drawn so far (``MIEngine.pair_quantiles``).  The
+stream and its chunks are those of drawing every iteration first, so the
+threshold is the same bit for bit.
 """
 
 from __future__ import annotations
+
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -71,10 +79,15 @@ def determine_mi_threshold(engine, n_values: int, threshold_pairs: int = 0,
         print(f" ({pairs_n} pairs * {iterations} iterations)", file=verbose_out)
 
     rng = np.random.default_rng(seed)
-    draws = [sample_pairs(rng, pairs_n, n_loci) for _ in range(iterations)]
-    ii = np.concatenate([d[0] for d in draws])
-    jj = np.concatenate([d[1] for d in draws])
-    thresholds = engine.pair_quantiles(ii, jj, iterations, pairs_n, threshold_idx)
+    # one worker: the iterations are drawn in order, as one stream
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        draws = [pool.submit(sample_pairs, rng, pairs_n, n_loci) for _ in range(iterations)]
+        try:
+            thresholds = engine.pair_quantiles((d.result() for d in draws), iterations,
+                                               pairs_n, threshold_idx)
+        finally:
+            for d in draws:
+                d.cancel()
     if verbose_out is not None:
         for it, t in enumerate(thresholds):
             print(f"spydrpick-torch: {it + 1:2d}/{iterations} threshold "

@@ -93,22 +93,27 @@ class EdgeStore:
             dst[n0:n0 + take] = src[:take]
         self.count += n
 
-    def ordered(self, lo: int, hi: int, rows: list[int], tile: int,
-                width: int) -> tuple[torch.Tensor, ...]:
-        """Slots [lo, hi) in sweep order: by the visit index of the block-
-        row in ``rows`` (block-row starts in the order swept), then i, then
-        j (< ``width``); one sort of a unique int64 key on the device."""
-        parts = tuple(a[lo:hi] for a in self.arrays())
+    def sweep_order(self, lo: int, hi: int, rows: list[int], tile: int,
+                    width: int) -> torch.Tensor:
+        """The permutation that puts slots [lo, hi) in sweep order: by the
+        visit index of the block-row in ``rows`` (block-row starts in the
+        order swept), then i, then j (< ``width``); one sort of a unique
+        int64 key on the device."""
         if hi <= lo:
-            return parts
+            return torch.zeros(0, dtype=torch.int64, device=self.ipos.device)
         rank = torch.zeros(max(rows) // tile + 1, dtype=torch.int64)
         rank[[r // tile for r in rows]] = torch.arange(len(rows))
         rank = rank.to(self.ipos.device)
-        ip = parts[0].to(torch.int64)
+        ip = self.ipos[lo:hi].to(torch.int64)
         blk = ip // tile
-        key = (rank[blk] * tile + ip - blk * tile) * width + parts[1]
-        order = torch.argsort(key)
-        return tuple(p[order] for p in parts)
+        key = (rank[blk] * tile + ip - blk * tile) * width + self.jpos[lo:hi]
+        return torch.argsort(key)
+
+    def ordered(self, lo: int, hi: int, rows: list[int], tile: int,
+                width: int) -> tuple[torch.Tensor, ...]:
+        """Slots [lo, hi) in sweep order (``sweep_order``)."""
+        order = self.sweep_order(lo, hi, rows, tile, width)
+        return tuple(a[lo:hi][order] for a in self.arrays())
 
 
 def select_masks(orig_pos: torch.Tensor, i0: int, T: int, j0: int, W: int, n_loci: int,

@@ -49,7 +49,7 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from spydrpick_torch.core.alignment import Alignment
 from spydrpick_torch.core.alphabet import N_STATES
-from spydrpick_torch.device import default_device, synchronize
+from spydrpick_torch.device import default_device, synchronize, to_host
 from spydrpick_torch.engine import checkpoint as ckpt_mod
 from spydrpick_torch.engine.solver import (
     _PAIRS_BUDGET,
@@ -215,13 +215,15 @@ def _gather_store(store, lo: int, rows: list[int], tile: int, width: int, group,
                   n_ranks: int) -> list[np.ndarray]:
     """Store slots [lo, store.checked) of every rank of ``group``, each
     rank's in its sweep order (``EdgeStore.ordered`` over its ``rows``),
-    concatenated in rank order on the host: (ipos, jpos, mi[, wog])."""
+    concatenated in rank order on the host (``to_host``) and widened:
+    (ipos, jpos as int64, mi[, wog] as float64)."""
     local = store.ordered(lo, store.checked, rows, tile, width)
     n = torch.tensor([store.checked - lo], dtype=torch.int64, device=store.count.device)
     ns = [torch.empty_like(n) for _ in range(n_ranks)]
     dist.all_gather(ns, n, group=group)
     counts = [int(x) for x in ns]
-    return [_gather_rows(x, counts, group).cpu().numpy() for x in local]
+    return to_host([_gather_rows(x, counts, group) for x in local],
+                   dtypes=[torch.int64, torch.int64, torch.float64, torch.float64][:len(local)])
 
 
 def checkpoint_key(engine: MIEngine, threshold: float, mesh: DeviceMesh) -> str:
@@ -329,11 +331,10 @@ def sharded_sweep(engine: MIEngine, threshold: float, mesh: DeviceMesh, progress
         new = _gather_store(store, saved, mine, T, Lp, rows_group, n_rows_sh)
         saved = store.checked
         if writer:
-            written.ipos.append(new[0].astype(np.int64))
-            written.jpos.append(new[1].astype(np.int64))
-            written.mi.append(new[2].astype(np.float64))
-            written.mi_wog.append(written.mi[-1] if store.wog is None
-                                  else new[3].astype(np.float64))
+            written.ipos.append(new[0])
+            written.jpos.append(new[1])
+            written.mi.append(new[2])
+            written.mi_wog.append(new[2] if store.wog is None else new[3])
             written.done_rows.update(order[:(k + 1) * n_rows_sh])
             written.colmax = cm[:L].cpu().numpy().astype(np.float64)
             ckpt_mod.save(checkpoint_path, written)
@@ -344,17 +345,17 @@ def sharded_sweep(engine: MIEngine, threshold: float, mesh: DeviceMesh, progress
     t1 = time.perf_counter()
     dist.all_reduce(colmax, op=dist.ReduceOp.MAX, group=rows_group)
     got = _gather_store(store, 0, mine, T, Lp, rows_group, n_rows_sh)
-    cat = lambda xs, dt: np.concatenate(xs) if xs else np.empty(0, dt)
-    s_i = cat(snap.ipos + [got[0].astype(np.int64)], np.int64)
-    s_j = cat(snap.jpos + [got[1].astype(np.int64)], np.int64)
-    s_m = cat(snap.mi + [got[2].astype(np.float64)], np.float64)
+    cat = ckpt_mod.concat
+    s_i = cat(snap.ipos + [got[0]], np.int64)
+    s_j = cat(snap.jpos + [got[1]], np.int64)
+    s_m = cat(snap.mi + [got[2]], np.float64)
     colmax_h = colmax[:L].cpu().numpy().astype(np.float64)
     t2 = time.perf_counter()
     if st.wog_lazy:
         # snapshot and fresh rows alike hold mi placeholders
-        s_w = engine._resolve_deferred_wog(s_m, s_i, s_j, colmax_h)
+        s_w = engine._resolve_deferred_wog(s_m, s_i, s_j, colmax_h, timings)
     else:
-        s_w = cat(snap.mi_wog + [got[3].astype(np.float64)], np.float64)
+        s_w = cat(snap.mi_wog + [got[3]], np.float64)
     if checkpoint_path and writer and os.path.exists(checkpoint_path):
         os.unlink(checkpoint_path)  # run completed; stale resume data
     if timings is not None:

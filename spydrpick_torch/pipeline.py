@@ -211,8 +211,9 @@ def run_pipeline(opts: PipelineOptions, write_outputs: bool = True,
     """``timings`` (optional dict) receives per-stage wall seconds:
     preprocess_s, engine_build_s, threshold_s, sweep_s (with the engine's
     phases under sweep_phases), sort_s, aracne_s (aracne_phases), write_s
-    and total_s.  Each stage boundary waits for the device first, so a
-    stage's time includes its device work."""
+    (write_phases: each file's seconds) and total_s.  Each stage boundary
+    waits for the device first, so a stage's time includes its device
+    work."""
     device = default_device()
     if is_writer():
         os.makedirs(opts.output_dir, exist_ok=True)
@@ -296,7 +297,7 @@ def run_pipeline(opts: PipelineOptions, write_outputs: bool = True,
     _log(opts, f"outlier threshold={outlier_thr:.6f}")
     _log(opts, f"extreme outlier threshold={extreme_thr:.6f}")
 
-    edges = edges.sort_desc()
+    edges = edges.sort_desc_on(device)  # sort_desc's order, from one device sort
     t_st = _stage("sort_s", t_st)
 
     if not opts.no_aracne and edges.n_edges:
@@ -321,7 +322,7 @@ def run_pipeline(opts: PipelineOptions, write_outputs: bool = True,
         extreme_outlier_threshold=extreme_thr,
     )
     if write_outputs and is_writer():
-        _write_outputs(opts, result)
+        tm["write_phases"] = _write_outputs(opts, result)
         _stage("write_s", t_st)
 
     tm["total_s"] = timer.stop()
@@ -329,8 +330,10 @@ def run_pipeline(opts: PipelineOptions, write_outputs: bool = True,
     return result
 
 
-def _write_outputs(opts: PipelineOptions, res: PipelineResult) -> None:
-    """Couplings + outliers + outlier-node FASTA (SpydrPick.cpp:423-510)."""
+def _write_outputs(opts: PipelineOptions, res: PipelineResult) -> dict:
+    """Couplings + outliers + outlier-node FASTA (SpydrPick.cpp:423-510);
+    returns each one's seconds (couplings_s, outliers_s, nodes_s)."""
+    t0 = time.perf_counter()
     al = res.alignment
     base = opts.output_indexing_base
     stem = f"{opts.output_dir}/{al.id_string}.{al.size_string()}.spydrpick_couplings"
@@ -340,6 +343,7 @@ def _write_outputs(opts: PipelineOptions, res: PipelineResult) -> None:
         write_couplings(f, res.edges, res.flags, al, base, opts.linear_genome)
     res.couplings_path = str(couplings_path)
     _log(opts, f'wrote network ({res.edges.n_edges} edges) to "{couplings_path}"')
+    t1 = time.perf_counter()
 
     outliers_path = unique_path(f"{stem}.{base}-based.outliers")
     with open(outliers_path, "w") as f:
@@ -350,6 +354,7 @@ def _write_outputs(opts: PipelineOptions, res: PipelineResult) -> None:
         )
     res.outliers_path = str(outliers_path)
     _log(opts, f'wrote outlier network ({n_rows} rows) to "{outliers_path}"')
+    t2 = time.perf_counter()
 
     mask = res.edges.mi >= res.outlier_threshold
     nodes = np.unique(np.concatenate([res.edges.ipos[mask], res.edges.jpos[mask]]))
@@ -357,3 +362,4 @@ def _write_outputs(opts: PipelineOptions, res: PipelineResult) -> None:
     if 0 < len(nodes) < al.n_loci:
         write_fasta(unique_path(f"{opts.output_dir}/{al.id_string}.outlier_nodes.fasta"),
                     al.subset(nodes))
+    return {"couplings_s": t1 - t0, "outliers_s": t2 - t1, "nodes_s": time.perf_counter() - t2}

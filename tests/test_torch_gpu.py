@@ -369,3 +369,42 @@ def test_cuda_split_path_on_engine_row_args(cuda_device, mode):
                 for a, b in ((0, 101), (101, 200)))
         mi = mi_epilogue(xtab_to_f32(C, scale), ipf, jpf, pseudocount=pc, bw=bw)
         assert torch.equal(mi, eng.row_mi(i0))
+
+
+@pytest.mark.gpu
+def test_cuda_to_host_in_chunks(cuda_device, monkeypatch):
+    """``to_host`` on a card: gathered, widened and copied through pinned
+    memory in HOST_CHUNK steps (here 1000 elements) equals the CPU's."""
+    from spydrpick_torch import device as device_mod
+
+    monkeypatch.setattr(device_mod, "HOST_CHUNK", 1000)
+    rng = np.random.default_rng(4)
+    i = torch.from_numpy(rng.integers(0, 10**6, 4321).astype(np.int32))
+    m = torch.from_numpy(rng.random(4321).astype(np.float32))
+    order = torch.from_numpy(rng.permutation(4321))
+    dtypes = [torch.int64, torch.float64]
+    want = device_mod.to_host([i, m], order, dtypes)
+    got = device_mod.to_host([i.to(cuda_device), m.to(cuda_device)], order.to(cuda_device),
+                             dtypes)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.gpu
+def test_cuda_sort_desc_on_ties(cuda_device):
+    """The device sort keeps (ipos, jpos) order inside runs of equal mi on
+    CUDA as numpy's sort_desc does (stable descending sort)."""
+    from spydrpick_torch.engine.solver import EdgeSet
+
+    rng = np.random.default_rng(12)
+    L, E = 3000, 200_000
+    keys = rng.choice(L * L, size=3 * E, replace=False)
+    i, j = keys // L, keys % L
+    keep = i < j
+    i, j = i[keep][:E], j[keep][:E]
+    mi = rng.choice(np.linspace(0.01, 0.5, 37), size=len(i))
+    e = EdgeSet(i, j, mi, mi * rng.random(len(i)), rng.random(L))
+    got, want = e.sort_desc_on(cuda_device), e.sort_desc()
+    for f in ("ipos", "jpos", "mi", "mi_wog"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
