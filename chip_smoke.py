@@ -56,7 +56,8 @@ Phases (each raises on failure; nothing is caught):
   5. the main path at the size users run it: ``spydrpick_torch.cli.main``
      on the weighted S=3000 x L=30720 alignment (the bench.py "medium"
      generator) with the automatic threshold; K1 and B2 must each have
-     been launched once per block-row (60), and its files must be
+     been launched once per block-row (60), the ARACNE kernel once and the
+     couplings formatter at least once, and its files must be
      byte-identical to the ones pinned in ``MAIN_OUTPUTS`` (sha256);
   6. the library's exact-wog sweep at that size:
      ``MIEngine(al, EngineConfig(wog_fetch="full")).sweep(thr)`` at phase
@@ -65,11 +66,23 @@ Phases (each raises on failure; nothing is caught):
      the lazy sweep's outlier candidates (wog from the pairs path) agree
      within 1e-5, and edges whose columns have no gaps carry wog == mi;
      both sweeps' times and peak device memory;
-     b. the pipeline's edge sort on the card (``EdgeSet.sort_desc_on``)
+     b. the pipeline's edge sort on the card (``EdgeSet.sorted_on``)
         against numpy's ``EdgeSet.sort_desc``: the same permutation on the
         lazy sweep's edges (phase 5's), on them shuffled with MI quantised
         to steps of 0.005, and on 2^23 + 30,000 edges over 2^20 columns
         where numpy lexsorts its tied spans; both times each;
+     c. the kernels for host stages on phase 5's sorted edges, kept on
+        the card (``EdgeSet.sorted_on``): the ARACNE DPI scan
+        (``aracne_flags``) equal to its plain version and the native
+        owner-scan flag for flag; the couplings formatter
+        (``format_couplings_rows``) equal to the native formatter (sha256)
+        and its plain version, and on adversarial MI values (the
+        binary-exact ties, halfway points and their one-ulp neighbours,
+        5e-7 +- 1 ulp, subnormals) equal to Python's f"{x:.6f}"; the
+        times of each kernel, its plain version and its native copy, with
+        bounds and shares; the plain versions on the host's CPU, equal to
+        the native copies, timed beside them (the CPU pipeline runs the
+        native copies);
   7. checkpoint and resume at that size: a checkpointed sweep of the
      engine ``run_pipeline`` builds is killed from its progress callback
      after block-row 24; ``cli.main`` with phase 5's flags plus
@@ -116,7 +129,11 @@ Phases (each raises on failure; nothing is caught):
      0.084647 printed; the sweep's seconds, column pairs/s, expansion
      seconds, items, rows swept again and peak memory (fetch_s among its
      phases); then the pipeline's device sort of its edges, its time and
-     peak memory with the engine held, checked on the card
+     peak memory with the engine held; the ARACNE kernel and the
+     couplings writer on the sorted ~87M edges (times, peak memory, the
+     longest row), both held to the native copies on the first 2^24
+     sorted edges (the flags of that prefix run as a graph of its own,
+     the bytes' sha256 of the file's first chunk); the sort checked on the card
      (``check_desc_order``: the sweep's edges, mi and wog once each, in
      descending mi with ties by (ipos, jpos));
  12. the checkpointed row-sharded CLI (run after phase 9, since it needs
@@ -132,7 +149,8 @@ Phases (each raises on failure; nothing is caught):
      engine) with BENCH_E2E_RUNS=5 warm end-to-end runs; its JSON line must
      name the card and power limit of phase 1 and the cuda backend, its
      end-to-end edges and threshold must be phase 5's, every warm run must
-     launch K1 and B2 once per block-row (60) and B3, B4 and B5 never, and
+     launch K1 and B2 once per block-row (60), the ARACNE and formatter
+     kernels once each, and B3, B4 and B5 never, and
      its sweep minimum must lie within 2x of phase 5's sweep_s; its
      headline figures, its stage medians and the device's busy share of
      its traced warm run (in (0, 1]) are printed.
@@ -141,10 +159,12 @@ ARGS``: ``cli.main(ARGS)``, then the launch counts as a JSON line; each
 has a time limit, and a rank that fails fails the phase.  Phase 12's
 killed run starts them as ``chip_smoke.py --rank-killed K ARGS``.
 The line before the last is a JSON object with each kernel's route,
-source, launches in its main-path phase (5 for K1 and B2, 6 for B3, 9 for
-B4 and B5, summed over the ranks), max error over phases 2-3, 6 and 2d,
+source, launches in its main-path phase (5 for K1, B2 and the ARACNE and
+formatter kernels, 6 for B3, 9 for B4 and B5, summed over the ranks), max
+error over phases 2-3, 6, 2d and 6c (0 for the exact comparisons),
 times at the main path's shape (the fixed14 block-row at i0=0; for B2 the
-lazy block-row at i0=0 and the tournament's threshold), the bound
+lazy block-row at i0=0 and the tournament's threshold; for the ARACNE and
+formatter kernels phase 5's ~3.1M sorted edges), the bound
 computed from those inputs and what sets it, and the
 library call's time where one PyTorch call computes the same function
 (B4), else null; the last line is ``{"ok": true, "device": {...}}``.
@@ -337,7 +357,8 @@ def phase_env():
         # a mangled template instance: ...mi_epilogue_kernelILb1EE... is
         # <1>, ...mi_tile_mma_kernelIaE... <int8>, ...I13__nv_bfloat16E... <bf16>
         m = re.search(r"entry function '\w*?((?:mi_tile|mi_tile_dual|crosstab)_mma_kernel"
-                      r"|row_select_kernel|mi_epilogue_kernel)(?:I(\w+?)E+|E)v", line)
+                      r"|row_select_kernel|mi_epilogue_kernel|aracne_scan_kernel"
+                      r"|format_lengths_kernel|format_rows_kernel)(?:I(\w+?)E+v|E)", line)
         if m:
             targs = m.group(2) or ""
             args = re.findall(r"L[ib](\d+)E", targs + "E") or (
@@ -898,19 +919,22 @@ def phase_parity(dev, td, S=256, L=2048):
 
 def phase_main(dev, td, fasta, wfile, S=S_BENCH, L=L_BENCH):
     from spydrpick_torch import cli
+    from spydrpick_torch.ops.aracne import aracne_flags
     from spydrpick_torch.ops.compact import row_select
+    from spydrpick_torch.ops.format import format_couplings_rows
     from spydrpick_torch.ops.mi_kernels import mi_tile_single
 
     out_dir = os.path.join(td, "out")
     torch.cuda.reset_peak_memory_stats(dev)
-    mi_tile_single.launches = 0
-    row_select.launches = 0
+    fns = (mi_tile_single, row_select, aracne_flags, format_couplings_rows)
+    for fn in fns:
+        fn.launches = 0
     log = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(log):
         rc = cli.main(main_flags(fasta, wfile) + ["--output-dir", out_dir])
     wall = time.perf_counter() - t0
-    launches = {"mi_tile_single": mi_tile_single.launches, "row_select": row_select.launches}
+    launches = {fn.__name__: fn.launches for fn in fns}
     text = log.getvalue()
     if rc != 0:
         raise AssertionError(f"cli.main returned {rc}:\n{text[-4000:]}")
@@ -918,10 +942,13 @@ def phase_main(dev, td, fasta, wfile, S=S_BENCH, L=L_BENCH):
     if mode != "fixed14":
         raise AssertionError(f"main path ran int8 mode {mode}, not fixed14")
     n_rows = -(-L // TILE)
-    for name, n in launches.items():
-        if n != n_rows:
-            raise AssertionError(f"main path launched kernel {name} {n} times, not once per "
-                                 f"block-row ({n_rows})")
+    for name in ("mi_tile_single", "row_select"):
+        if launches[name] != n_rows:
+            raise AssertionError(f"main path launched kernel {name} {launches[name]} times, "
+                                 f"not once per block-row ({n_rows})")
+    if launches["aracne_flags"] != 1 or launches["format_couplings_rows"] < 1:
+        raise AssertionError(f"main path launches {launches}: ARACNE's kernel must run once "
+                             "and the couplings formatter at least once")
     files = sorted(os.listdir(out_dir))
     couplings = [f for f in files if re.search(r"spydrpick_couplings\.1-based\.\d+edges$", f)]
     outliers = [f for f in files if f.endswith(".outliers")]
@@ -947,6 +974,7 @@ def phase_main(dev, td, fasta, wfile, S=S_BENCH, L=L_BENCH):
     print(f"# main path S={S} L={L} weighted fixed14: rc 0 in {wall:.2f} s; "
           f"threshold {thr:.6f}, {n_edges} edges, top couplings row {' '.join(first)}")
     print("# stage seconds: " + ", ".join(f"{k} {v}" for k, v in stages.items()))
+    print("# " + re.search(r"ARACNE: .*", text).group(0))
     print(f"# peak device memory {peak / 2**30:.2f} GiB; launches {launches}", flush=True)
     print(f"# main path files byte-identical to the ones pinned (sha256): {digests}", flush=True)
     return launches, out_dir, float(stages["sweep_s"]), thr, n_edges
@@ -1022,7 +1050,7 @@ def phase_dual_sweep(dev, fasta, wfile, L=L_BENCH):
           f"gaps (wog == mi); max|wog - mi| {float(np.max(np.abs(full.mi_wog - full.mi))):.4f}; "
           f"sweep lazy {lazy_s:.3f} s, dual {full_s:.3f} s; peak device memory lazy "
           f"{lazy_gib:.3f} GiB, dual {full_gib:.3f} GiB; launches {launches}", flush=True)
-    return launches, err, lazy
+    return launches, err, lazy, al
 
 
 SORT_FIELDS = ("ipos", "jpos", "mi", "mi_wog")
@@ -1031,21 +1059,25 @@ SORT_FIELDS = ("ipos", "jpos", "mi", "mi_wog")
 def sorts_agree(label, edges, dev):
     """(numpy seconds, device seconds, tied neighbours): numpy's
     ``EdgeSet.sort_desc`` and the pipeline's device sort
-    (``EdgeSet.sort_desc_on``, timed after one warm-up call) must give the
-    same arrays in the same dtypes, i.e. the same permutation (the pairs
-    are unique)."""
+    (``EdgeSet.sorted_on``, timed after one warm-up call) must give the
+    same arrays in the same dtypes, on the host and in the columns it keeps
+    on the card, i.e. the same permutation (the pairs are unique)."""
     t0 = time.perf_counter()
     want = edges.sort_desc()
     np_s = time.perf_counter() - t0
-    edges.sort_desc_on(dev)
+    edges.sorted_on(dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    got = edges.sort_desc_on(dev)
+    got, kept = edges.sorted_on(dev)
     dev_s = time.perf_counter() - t0
     for f in SORT_FIELDS:
         a, b = getattr(got, f), getattr(want, f)
         if a.dtype != b.dtype or not np.array_equal(a, b):
             raise AssertionError(f"device sort of {label}: {f} differs from numpy sort_desc's")
+    for f in SORT_FIELDS[:3]:
+        if not np.array_equal(getattr(kept, f).cpu().numpy(), getattr(want, f)):
+            raise AssertionError(f"device sort of {label}: the kept {f} column differs")
+    del kept
     return np_s, dev_s, int(np.count_nonzero(want.mi[1:] == want.mi[:-1]))
 
 
@@ -1083,6 +1115,157 @@ def phase_sort(dev, edges):
         print(f"# device sort, {label}: {e.n_edges} edges, {tied} tied neighbours; permutation "
               f"identical to numpy sort_desc's; numpy {np_s:.3f} s, device {dev_s:.3f} s",
               flush=True)
+
+
+ADVERSARIAL_HALFWAY = 100_000  # phase 6c: random halfway points (n + 1/2) 10^-6 up to ln 5
+
+
+def adversarial_mi(rng):
+    """Phase 6c's MI values for the formatter: every odd multiple of 2^-7
+    up to ln 5 (the only binary-exact ties (n + 1/2) 10^-6), one ulp
+    either side of ADVERSARIAL_HALFWAY random halfway points and the
+    points themselves, 5e-7 +- 1 ulp, subnormals, the smallest normal, and
+    random values up to ln 5."""
+    ties = np.arange(1, 207, 2) * 2.0**-7
+    half = (rng.integers(0, 1_609_438, ADVERSARIAL_HALFWAY) + 0.5) / 1e6
+    tiny = np.array([0.0, 5e-7, np.nextafter(5e-7, 0), np.nextafter(5e-7, 1), 5e-324,
+                     np.nextafter(5e-324, 1), 1e-310, 2.2250738585072014e-308, 1e-300])
+    return np.concatenate([ties, half, np.nextafter(half, 0), np.nextafter(half, 1), tiny,
+                           rng.random(ADVERSARIAL_HALFWAY) * np.log(5)])
+
+
+def aracne_bounds(E, n_nodes):
+    """(function bound, scan bound), each (ms, "bytes"): aracne_flags reads
+    the edge columns (ipos, jpos int64, mi f64) once and writes one flag
+    byte per edge; its scan kernel reads the CSR (offsets, int32
+    neighbours, f64 weights of 2E half-edges) besides."""
+    cols = E * (8 + 8 + 8) + E
+    csr = (n_nodes + 1) * 8 + 2 * E * (4 + 8)
+    return bound(0, "f32", cols), bound(0, "f32", cols + csr)
+
+
+def format_bound(n, n_bytes):
+    """format_couplings_rows reads p1, p2, dist, mi (8 bytes each) and the
+    flag of each row once and writes the text once; its integer digit
+    arithmetic is not counted (the table has no integer-ALU peak)."""
+    return bound(0, "f32", n * 33 + n_bytes)
+
+
+def max_abs_diff(a, b) -> float:
+    """max |a - b| over two integer arrays (flags or bytes), widened to
+    int64; inf when their lengths differ, 0.0 when both are empty."""
+    a, b = np.asarray(a).ravel(), np.asarray(b).ravel()
+    if a.shape != b.shape:
+        return float("inf")
+    if a.size == 0:
+        return 0.0
+    return float(np.abs(a.astype(np.int64) - b.astype(np.int64)).max())
+
+
+def phase_host_kernels(dev, al, edges):
+    """Phase 6c: kernels A (ARACNE's DPI scan) and B (the couplings
+    formatter) on phase 5's sorted edges, kept on the card as the
+    pipeline keeps them (``EdgeSet.sorted_on``): A's flags equal to its
+    plain version's and to the native owner-scan's; B's bytes equal to
+    the native formatter's (sha256) and to its plain version's; B on the
+    adversarial MI values equal to Python's f"{x:.6f}" rows; times of the
+    kernels, the plain versions and the native copies, with bounds."""
+    from spydrpick_torch.engine.aracne import DEFAULT_EDGE_THRESHOLD as EPS
+    from spydrpick_torch.native import aracne_native, format_native
+    from spydrpick_torch.ops.aracne import aracne_flags, aracne_flags_plain
+    from spydrpick_torch.ops.format import (couplings_columns, format_couplings_rows,
+                                            format_couplings_rows_plain)
+
+    host, d = edges.sorted_on(dev)
+    E = host.n_edges
+    tm = {}
+    flags = aracne_flags(d.ipos, d.jpos, d.mi, EPS, timings=tm)
+    plain = aracne_flags_plain(d.ipos, d.jpos, d.mi, EPS)
+    t0 = time.perf_counter()
+    native = ~aracne_native.mark_indirect(host.ipos, host.jpos, host.mi, EPS)
+    native_a_ms = (time.perf_counter() - t0) * 1e3
+    got = flags.cpu().numpy()
+    a_err = max(max_abs_diff(got, plain.cpu().numpy()), max_abs_diff(got, native))
+    if a_err != 0:
+        raise AssertionError(f"ARACNE kernel: flags differ from the plain version's or the "
+                             f"native owner-scan's (max |d| {a_err})")
+    a_ms = cuda_time_ms(lambda: aracne_flags(d.ipos, d.jpos, d.mi, EPS), 5)
+    split = [{} for _ in range(3)]
+    for t in split:
+        aracne_flags(d.ipos, d.jpos, d.mi, EPS, timings=t)
+    csr_ms = 1e3 * float(np.median([t["csr_s"] for t in split]))
+    scan_ms = 1e3 * float(np.median([t["scan_s"] for t in split]))
+    a_plain_ms = cuda_time_ms(lambda: aracne_flags_plain(d.ipos, d.jpos, d.mi, EPS), 1)
+    (a_bound, a_by), (scan_bound, _) = aracne_bounds(E, int(host.jpos.max()) + 1)
+    print(f"# 6c ARACNE kernel on phase 5's {E} sorted edges ({tm['nodes']} nodes, longest row "
+          f"{tm['max_degree']}): {int(got.sum())} direct, flags equal to the plain version's "
+          f"and the native owner-scan's; aracne_flags {a_ms:.3f} ms (CSR {csr_ms:.3f}, scan "
+          f"{scan_ms:.3f}), {share(a_ms, a_bound)}; scan {share(scan_ms, scan_bound)}; plain "
+          f"{a_plain_ms:.3f} ms; native owner-scan {native_a_ms:.3f} ms", flush=True)
+
+    trans = torch.from_numpy(np.ascontiguousarray(al.translation, dtype=np.int64)).to(dev)
+    cols = couplings_columns(d.ipos, d.jpos, trans, 1, al.n_original_positions, False)
+    rows = format_couplings_rows(*cols, flags, d.mi)
+    data = rows.cpu().numpy().tobytes()
+    hcols = [c.cpu().numpy() for c in cols]
+    t0 = time.perf_counter()
+    want = format_native.format_couplings(*hcols, got, host.mi)
+    native_b_ms = (time.perf_counter() - t0) * 1e3
+    digest = hashlib.sha256(data).hexdigest()
+    plain_rows = format_couplings_rows_plain(*cols, flags, d.mi)
+    b_err = max(max_abs_diff(rows.cpu().numpy(), np.frombuffer(want, np.uint8)),
+                max_abs_diff(rows.cpu().numpy(), plain_rows.cpu().numpy()))
+    if b_err != 0 or digest != hashlib.sha256(want).hexdigest():
+        raise AssertionError(f"formatter kernel: bytes differ from the native formatter's or "
+                             f"the plain version's (max |d| {b_err})")
+    b_ms = cuda_time_ms(lambda: format_couplings_rows(*cols, flags, d.mi), 10)
+    b_plain_ms = cuda_time_ms(lambda: format_couplings_rows_plain(*cols, flags, d.mi), 1)
+    b_bound, b_by = format_bound(E, len(data))
+    print(f"# 6c formatter kernel on the same rows: {len(data)} bytes, sha256 {digest} equal "
+          f"to the native formatter's and the plain version's; {b_ms:.3f} ms, "
+          f"{share(b_ms, b_bound)}; plain {b_plain_ms:.3f} ms; native formatter "
+          f"{native_b_ms:.3f} ms", flush=True)
+    # the plain versions on the host's CPU, against the native copies: the
+    # pipeline runs the faster of the two there
+    cpu = [torch.from_numpy(x) for x in (host.ipos, host.jpos, host.mi)]
+    t0 = time.perf_counter()
+    cpu_flags = aracne_flags_plain(*cpu, EPS).numpy()
+    a_cpu_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    cpu_rows = format_couplings_rows_plain(*(torch.from_numpy(c) for c in hcols),
+                                           torch.from_numpy(cpu_flags), cpu[2]).numpy()
+    b_cpu_ms = (time.perf_counter() - t0) * 1e3
+    cpu_a_err = max_abs_diff(cpu_flags, native)
+    cpu_b_err = max_abs_diff(cpu_rows, np.frombuffer(want, np.uint8))
+    a_err, b_err = max(a_err, cpu_a_err), max(b_err, cpu_b_err)
+    if cpu_a_err != 0 or cpu_b_err != 0:
+        raise AssertionError(f"plain versions on the CPU differ from the native copies (flags "
+                             f"max |d| {cpu_a_err}, bytes max |d| {cpu_b_err})")
+    print(f"# 6c plain versions on the host's CPU ({torch.get_num_threads()} torch threads), "
+          f"equal to the native copies: ARACNE {a_cpu_ms:.3f} ms against the native "
+          f"owner-scan's {native_a_ms:.3f} ms ({a_cpu_ms / native_a_ms:.1f}x), formatter "
+          f"{b_cpu_ms:.3f} ms against the native formatter's {native_b_ms:.3f} ms "
+          f"({b_cpu_ms / native_b_ms:.1f}x); the pipeline on the CPU runs the native copies",
+          flush=True)
+    del cpu, cpu_flags, cpu_rows
+    mi = adversarial_mi(np.random.default_rng(6))
+    z = torch.zeros(len(mi), dtype=torch.int64, device=dev)
+    adv = format_couplings_rows(z, z, z, z.to(torch.uint8), torch.from_numpy(mi).to(dev))
+    py = "".join(f"0 0 0 0 {x:.6f}\n" for x in mi).encode()
+    adv_err = max_abs_diff(adv.cpu().numpy(), np.frombuffer(py, np.uint8))
+    b_err = max(b_err, adv_err)
+    if adv_err != 0:
+        raise AssertionError(f"formatter kernel: an adversarial MI differs from Python's "
+                             f"(max |d| {adv_err})")
+    print(f"# 6c formatter kernel on {len(mi)} adversarial MI values (103 binary-exact ties, "
+          f"{ADVERSARIAL_HALFWAY} halfway points and their one-ulp neighbours, 5e-7 +- 1 ulp, "
+          "subnormals, random up to ln 5): rows equal to Python's f\"{x:.6f}\"", flush=True)
+    del plain, plain_rows, rows, d
+    return ({"aracne": a_err, "format": b_err},
+            {"aracne": {"ms": a_ms, "plain_ms": a_plain_ms, "bound_ms": a_bound, "bound_by": a_by,
+                        "library_ms": None},
+             "format": {"ms": b_ms, "plain_ms": b_plain_ms, "bound_ms": b_bound, "bound_by": b_by,
+                        "library_ms": None}})
 
 
 def cli_run(args, label):
@@ -1677,6 +1860,82 @@ def check_desc_order(edges, got, dev):
         raise AssertionError("1M sort: not in descending mi with ties by (ipos, jpos)")
 
 
+class HashSink:
+    """A binary file that keeps only the sha256 and the count of the
+    bytes written to it, and those of its first write."""
+
+    def __init__(self):
+        self.sha, self.n, self.first = hashlib.sha256(), 0, None
+
+    def write(self, data) -> None:
+        self.sha.update(data)
+        self.n += memoryview(data).nbytes
+        if self.first is None:
+            self.first = (memoryview(data).nbytes, hashlib.sha256(data).hexdigest())
+
+
+def wide_host_kernels(dev, al, ordered, d):
+    """Phase 11's ARACNE kernel and couplings writer on the ~87M sorted
+    edges ``d`` (on the card, the engine held, as in a pipeline run): each
+    one's time and peak device memory, the writer's bytes crossing through
+    pinned memory into a sink that hashes them.  Then both are held to
+    the native copies on the first ROW_CHUNK (2^24) sorted edges, each
+    native pass timed: the kernel's flags of that prefix, run as a graph
+    of its own, against the owner-scan's, and the writer's first chunk of
+    rows (sha256) against the native formatter's.  On every edge the
+    native passes take 40–82 s of host time (PR 12's runs), which would
+    push chip_smoke well past its budget."""
+    from spydrpick_torch.core.distance import genome_distance
+    from spydrpick_torch.engine.aracne import DEFAULT_EDGE_THRESHOLD as EPS
+    from spydrpick_torch.io.writers import ROW_CHUNK, write_couplings_rows
+    from spydrpick_torch.native import aracne_native, format_native
+    from spydrpick_torch.ops.aracne import aracne_flags
+
+    E = len(d.mi)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    tm = {}
+    flags = aracne_flags(d.ipos, d.jpos, d.mi, EPS, timings=tm)
+    torch.cuda.synchronize()
+    a_s, a_gib = time.perf_counter() - t0, torch.cuda.max_memory_allocated(dev) / 2**30
+    torch.cuda.reset_peak_memory_stats(dev)
+    sink, wt = HashSink(), {}
+    t0 = time.perf_counter()
+    write_couplings_rows(sink, d.ipos, d.jpos, d.mi, flags, al, 1, False, timings=wt)
+    w_s, w_gib = time.perf_counter() - t0, torch.cuda.max_memory_allocated(dev) / 2**30
+    got = flags.cpu().numpy()
+    del flags
+    print(f"# 1M width: ARACNE kernel on the {E} sorted edges ({tm['nodes']} nodes, longest "
+          f"row {tm['max_degree']}) in {a_s:.3f} s (CSR {tm['csr_s']:.3f}, scan "
+          f"{tm['scan_s']:.3f}), {int(got.sum())} direct, peak device memory {a_gib:.3f} GiB "
+          f"(engine held); couplings rows {sink.n} bytes in {w_s:.3f} s (format "
+          f"{wt['format_s']:.3f}, copy {wt['copy_s']:.3f}, sink with sha256 "
+          f"{wt['file_s']:.3f}), peak {w_gib:.3f} GiB", flush=True)
+    n = min(E, ROW_CHUNK)
+    sub = aracne_flags(d.ipos[:n], d.jpos[:n], d.mi[:n], EPS).cpu().numpy()
+    ipos, jpos, mi = ordered.ipos[:n], ordered.jpos[:n], ordered.mi[:n]
+    t0 = time.perf_counter()
+    want = ~aracne_native.mark_indirect(ipos, jpos, mi, EPS)
+    native_a_s = time.perf_counter() - t0
+    if not np.array_equal(sub, want.astype(np.uint8)):
+        raise AssertionError("1M width: ARACNE kernel flags differ from the native owner-scan's")
+    del want, sub
+    p1 = al.translation[ipos] + 1
+    p2 = al.translation[jpos] + 1
+    dist = genome_distance(p1, p2, al.n_original_positions, False)
+    t0 = time.perf_counter()
+    data = format_native.format_couplings(p1, p2, dist, got[:n], mi)
+    native_b_s = time.perf_counter() - t0
+    if (len(data), hashlib.sha256(data).hexdigest()) != sink.first:
+        raise AssertionError("1M width: the couplings writer's first chunk differs from the "
+                             "native formatter's")
+    print(f"# 1M width: on the first {n} sorted edges, run as a graph of their own, the ARACNE "
+          f"kernel's flags equal the native owner-scan's ({native_a_s:.2f} s), and the "
+          f"writer's first chunk of rows ({len(data)} bytes) the native formatter's "
+          f"({native_b_s:.2f} s; sha256 {sink.first[1]})", flush=True)
+
+
 def phase_full_width(dev, S=S_WIDE, L=L_WIDE):
     """Phase 11: the 1M-column width shape, codes storage and j-windows,
     swept at WIDE_THRESHOLD - WIDE_MARGIN from the default store (which
@@ -1736,9 +1995,12 @@ def phase_full_width(dev, S=S_WIDE, L=L_WIDE):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     t_s = time.perf_counter()
-    ordered = edges.sort_desc_on(dev)
+    ordered, dcols = edges.sorted_on(dev)
     sort_s = time.perf_counter() - t_s
     sort_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    wide_host_kernels(dev, al, ordered, dcols)
+    del dcols
+    torch.cuda.empty_cache()
     t_rc = time.perf_counter()
     rows = sorted({0, T} | set(again) | set(
         (np.random.default_rng(0).choice(L // T, RECOUNT_ROWS, replace=False) * T).tolist()))
@@ -1835,7 +2097,8 @@ def phase_bench(smi, main_thr, main_edges, main_sweep_s, L=L_BENCH):
                              f"{e2e['mi_threshold']}, phase 5: {main_edges} at {main_thr}")
     n_rows = -(-L // TILE)
     per_row = {"mi_tile_single": n_rows, "row_select": n_rows, "mi_tile_dual": 0,
-               "crosstab_tile": 0, "mi_epilogue": 0}
+               "crosstab_tile": 0, "mi_epilogue": 0, "aracne_flags": 1,
+               "format_couplings_rows": 1}
     if len(e2e["launches_all"]) != BENCH_E2E_RUNS or any(
             run != per_row for run in e2e["launches_all"]):
         raise AssertionError(f"bench warm runs launched {e2e['launches_all']}, expected "
@@ -1852,10 +2115,12 @@ def phase_bench(smi, main_thr, main_edges, main_sweep_s, L=L_BENCH):
           f"{cfg['threshold']}; sweep peak {cfg['sweep_peak_gib']} GiB); end to end median "
           f"{e2e['total_s']} s of {e2e['total_s_all']} (cold {e2e['cold_total_s']} s), "
           f"{e2e['edges']} edges at {e2e['mi_threshold']} as phase 5, peak GiB "
-          f"{e2e['peak_gib_all']}; K1 and B2 {n_rows} per warm run; {wall:.1f} s", flush=True)
+          f"{e2e['peak_gib_all']}; K1 and B2 {n_rows} per warm run, the ARACNE and formatter "
+          f"kernels once; {wall:.1f} s", flush=True)
     print("# bench stage medians (s): " + ", ".join(f"{k} {e2e[k]}" for k in BENCH_STAGES)
-          + f"; sweep phases {e2e['sweep_phases']}; aracne phases {e2e['aracne_phases']}; "
-          f"write phases {e2e['write_phases']}", flush=True)
+          + f"; preprocess phases {e2e['preprocess_phases']}; sweep phases "
+          f"{e2e['sweep_phases']}; aracne phases {e2e['aracne_phases']}; write phases "
+          f"{e2e['write_phases']}", flush=True)
     print(f"# bench traced warm run: device busy share {busy} (wall {tr['wall_s']} s, busy "
           f"{tr['busy_s']} s, lead-in {tr['lead_s']} s, longest gap {tr['max_gap_s']} s)",
           flush=True)
@@ -1887,9 +2152,10 @@ def main() -> int:
         phase_parity(dev, td)
         launches, main_out, main_sweep_s, main_thr, main_edges = phase_main(dev, td, fasta,
                                                                              wfile)
-        dual_launches, dual_err, lazy = phase_dual_sweep(dev, fasta, wfile)
+        dual_launches, dual_err, lazy, al = phase_dual_sweep(dev, fasta, wfile)
         phase_sort(dev, lazy)
-        del lazy
+        host_err, host_ms = phase_host_kernels(dev, al, lazy)
+        del lazy, al
         phase_checkpoint(dev, td, fasta, wfile, main_out, main_sweep_s)
         phase_rows_sharded(td, fasta, wfile, main_out)
         split_launches = phase_samples_sharded(dev, td)
@@ -1926,6 +2192,15 @@ def main() -> int:
          "replaces": "spydrpick_tpu/ops/mi_pallas.py:468",
          "launches": sum(x["mi_epilogue"] for x in split_launches),
          "max_abs_err": max(b5_err, split_err[1]), **split_ms["b5"]},
+        {"name": "aracne_flags", "route": "cuda", "source": "spydrpick_torch/csrc/aracne.cu",
+         "replaces": "spydrpick_tpu/native/aracne.cpp:33",
+         "launches": launches["aracne_flags"], "max_abs_err": host_err["aracne"],
+         **host_ms["aracne"]},
+        {"name": "format_couplings_rows", "route": "cuda",
+         "source": "spydrpick_torch/csrc/format_rows.cu",
+         "replaces": "spydrpick_tpu/native/format.cpp:42",
+         "launches": launches["format_couplings_rows"], "max_abs_err": host_err["format"],
+         **host_ms["format"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

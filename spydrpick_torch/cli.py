@@ -77,8 +77,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--version", action="store_true", help="print version information")
     p.add_argument("-v", "--verbose", action="store_true", help="be verbose")
     p.add_argument("-t", "--threads", type=int, default=-1,
-                   help="host threads for the native (OpenMP) ARACNE/FASTA "
-                        "kernels; -1 = all hardware threads")
+                   help="host threads for the native (OpenMP) FASTA parser and, "
+                        "on the CPU, ARACNE; -1 = all hardware threads")
 
     g = p.add_argument_group("MI options")
     g.add_argument("--mi-threshold", type=float, default=-1.0,

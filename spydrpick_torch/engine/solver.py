@@ -212,17 +212,36 @@ class EdgeSet:
         return EdgeSet(self.ipos[order], self.jpos[order], self.mi[order],
                        self.mi_wog[order], self.colmax)
 
-    def sort_desc_on(self, device: torch.device | str) -> "EdgeSet":
+    def sorted_on(self, device: torch.device | str) -> tuple["EdgeSet", "DeviceEdges"]:
         """``sort_desc``'s result from one sort on ``device``
-        (``desc_order``): the four arrays go to the device, are permuted
-        there and come back through pinned memory (``to_host``), each in
-        its own dtype; colmax stays.  The pipeline's sort, on the card
-        and on the CPU alike."""
+        (``desc_order``), and the sorted columns it was made from, kept
+        there (``DeviceEdges``): one upload, one sort; each column is
+        permuted there and its unsorted copy dropped before the next, then
+        all four come back through pinned memory, each in its own dtype;
+        colmax stays.  The pipeline's sort, on the card and on the CPU
+        alike: ARACNE and the couplings writer read the device columns."""
+        cols = self._columns_on(device)
+        order = desc_order(*cols[:3])
+        for k in range(len(cols)):
+            cols[k] = cols[k][order]
+        del order
+        got = to_host(cols)
+        return EdgeSet(*got, self.colmax), DeviceEdges(*cols[:3])
+
+    def _columns_on(self, device) -> list[torch.Tensor]:
         dev = torch.device(device)
-        cols = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+        return [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
                 for x in (self.ipos, self.jpos, self.mi, self.mi_wog)]
-        got = to_host(cols, desc_order(*cols[:3]))
-        return EdgeSet(*got, self.colmax)
+
+
+@dataclasses.dataclass
+class DeviceEdges:
+    """The sorted edges' columns on the run's device (``EdgeSet.sorted_on``),
+    in the host EdgeSet's order and dtypes: ipos < jpos int64, mi float64."""
+
+    ipos: torch.Tensor
+    jpos: torch.Tensor
+    mi: torch.Tensor
 
 
 def desc_order(ipos: torch.Tensor, jpos: torch.Tensor, mi: torch.Tensor) -> torch.Tensor:

@@ -7,13 +7,14 @@ It runs PARENT_DIR, CHANGE_DIR, CHANGE_DIR, PARENT_DIR, each as ``python
 -m spydrpick_torch.bench`` in a process of its own started in that
 checkout, with BENCH_E2E_RUNS=5 warm end-to-end runs at the bench's
 default shape (S=3000 x L=30720, weighted fixed14).  It prints one JSON line per run (the warm
-end-to-end median and every total, each stage's median, the sweep's
-phases, ARACNE's phases, the sweep minimum, edges and threshold), then
-per checkout the median of all its warm totals and, per stage, the median
-of its runs' medians.  ``--width`` then runs both checkouts' bench once
-each, parent first, at the width shape (S=256 x L=998,400, codes storage,
-j-windows of 65,536, no end to end, two timed sweeps) and prints the best
-sweep's phases (fetch_s among them) and its peak memory.
+end-to-end median and every total, each stage's median, the phases of the
+sweep, the preprocess, ARACNE and the write, the sweep minimum, edges and
+threshold), then per checkout the median of all its warm totals and, per
+stage and per phase, the median of its runs' medians.  ``--width`` then
+runs both checkouts' bench once each, parent first, at the width shape
+(S=256 x L=998,400, codes storage, j-windows of 65,536, no end to end, two
+timed sweeps) and prints the best sweep's phases (fetch_s among them) and
+its peak memory.
 
 Before the turns, each checkout's CLI runs once on the bench's alignment
 (written as FASTA and a weights file, ``--seed 1``), and the files of the
@@ -34,6 +35,7 @@ import tempfile
 
 STAGES = ("preprocess_s", "engine_build_s", "threshold_s", "sweep_s", "sort_s", "aracne_s",
           "write_s", "total_s")
+PHASES = ("sweep_phases", "preprocess_phases", "aracne_phases", "write_phases")
 WIDTH_ENV = {"BENCH_SAMPLES": "256", "BENCH_LOCI": "998400", "BENCH_ONEHOT": "codes",
              "BENCH_ROW_WINDOW": "65536", "BENCH_E2E": "0", "BENCH_SWEEPS": "2",
              "BENCH_SWEEPS_MAX": "2"}
@@ -84,9 +86,9 @@ def summary(line: dict) -> dict:
     e2e = cfg["end_to_end_s"]
     return {"total_s_all": e2e.get("total_s_all"),
             **{k: e2e.get(k) for k in STAGES},
-            "sweep_phases": e2e.get("sweep_phases"), "aracne_phases": e2e.get("aracne_phases"),
-            "write_phases": e2e.get("write_phases"),
-            "busy_share": e2e.get("busy_share"), "sweep_min_s": cfg["sweep_seconds"],
+            **{k: e2e.get(k) or {} for k in PHASES},
+            "busy_share": e2e.get("busy_share"), "peak_gib_all": e2e.get("peak_gib_all"),
+            "sweep_min_s": cfg["sweep_seconds"],
             "edges": e2e.get("edges"), "mi_threshold": e2e.get("mi_threshold"),
             "device": cfg["device"], "power_limit": cfg["power_limit"]}
 
@@ -111,6 +113,9 @@ def main(argv=None) -> int:
             "tree": label, "warm_runs": sum(len(s["total_s_all"]) for s in got),
             "median_total_s": statistics.median(t for s in got for t in s["total_s_all"]),
             **{f"median_{k}": statistics.median(s[k] for s in got) for k in STAGES},
+            **{f"median_{p}": {k: statistics.median(s[p][k] for s in got)
+                               for k in got[0][p] if all(k in s[p] for s in got)}
+               for p in PHASES},
             "edges": sorted({s["edges"] for s in got}),
             "mi_threshold": sorted({s["mi_threshold"] for s in got})}), flush=True)
     if args.width:

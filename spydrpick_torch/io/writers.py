@@ -11,14 +11,27 @@ formatters at apegrunt ``Graph_output_formatter`` (src/SpydrPick.cpp:
     extreme_flag`` where gap_effect = (1 - mi_wo_gaps/mi)*100 at one
     decimal, rows restricted to weight >= outlier_threshold and
     distance > ld_threshold (SpydrPick.hpp:100-124).
+
+``write_couplings_rows`` is the pipeline's couplings writer: it formats
+the sorted edges where they lie (``ops/format.py``: a CUDA kernel on a
+card, its plain version on the CPU), ROW_CHUNK rows at a time, and
+writes each chunk's bytes; ``write_couplings`` is the host writer of the
+reference (native formatter, Python fallback), kept with its signature.
 """
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
+import torch
 
 from spydrpick_torch.core.alignment import Alignment
 from spydrpick_torch.core.distance import genome_distance
+from spydrpick_torch.device import synchronize
+from spydrpick_torch.ops.format import couplings_columns, format_couplings_rows
+
+ROW_CHUNK = 1 << 24  # rows formatted at a time: bounds the device scratch
 
 
 def _translated(edges_pos: np.ndarray, translation: np.ndarray, base: int) -> np.ndarray:
@@ -71,6 +84,52 @@ def write_couplings(
         ))
         out.append("\n")
     f.write("".join(out))
+
+
+def write_couplings_rows(f, ipos: torch.Tensor, jpos: torch.Tensor, mi: torch.Tensor,
+                         flags: torch.Tensor, alignment: Alignment, output_base: int = 1,
+                         linear_genome: bool = False, timings: dict | None = None,
+                         chunk: int = ROW_CHUNK) -> None:
+    """The couplings file's rows (``write_couplings``'s bytes) from the
+    sorted edges as tensors on one device: ipos, jpos int64, mi f64, flags
+    uint8.  Per chunk of rows, p1, p2 and dist are computed and the rows
+    formatted on that device (``format_couplings_rows``); on a card the
+    bytes cross once into a pinned host buffer, and the file's binary
+    buffer writes them with no further copy.  ``timings`` receives
+    format_s, copy_s and file_s, summed over the chunks."""
+    dev = mi.device
+    out = f
+    if hasattr(f, "buffer"):  # a text file: write its bytes underneath
+        f.flush()
+        out = f.buffer
+    trans = torch.from_numpy(np.ascontiguousarray(alignment.translation, dtype=np.int64)).to(dev)
+    tm = {"format_s": 0.0, "copy_s": 0.0, "file_s": 0.0}
+    host = None
+    for lo in range(0, len(mi), chunk):
+        hi = min(len(mi), lo + chunk)
+        t0 = time.perf_counter()
+        p1, p2, dist = couplings_columns(ipos[lo:hi], jpos[lo:hi], trans, output_base,
+                                         alignment.n_original_positions, linear_genome)
+        data = format_couplings_rows(p1, p2, dist, flags[lo:hi], mi[lo:hi])
+        del p1, p2, dist
+        synchronize(dev)
+        t1 = time.perf_counter()
+        if dev.type == "cuda":
+            if host is None or len(host) < len(data):
+                host = torch.empty(len(data), dtype=torch.uint8, pin_memory=True)
+            host[:len(data)].copy_(data, non_blocking=True)
+            synchronize(dev)
+            buf = host[:len(data)].numpy()
+        else:
+            buf = data.numpy()
+        del data
+        t2 = time.perf_counter()
+        out.write(memoryview(buf))
+        tm["format_s"] += t1 - t0
+        tm["copy_s"] += t2 - t1
+        tm["file_s"] += time.perf_counter() - t2
+    if timings is not None:
+        timings.update(tm)
 
 
 def write_outliers(

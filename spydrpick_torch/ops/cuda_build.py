@@ -5,7 +5,8 @@ all started together, and the objects are linked into one shared library
 with a plain C interface (no PyTorch headers, so the build takes
 seconds), at the first kernel launch of a process, into
 ``build/kernels/`` of the checkout.  ``ctypes`` loads it; the wrappers in
-``ops/mi_kernels.py`` and ``ops/compact.py`` pass device pointers and
+``ops/mi_kernels.py``, ``ops/compact.py``, ``ops/aracne.py`` and
+``ops/format.py`` pass device pointers and
 PyTorch's current CUDA stream.  The ranks of a sharded run may build at
 once: each compiles into files of its own and renames the library into
 place, so none loads a half-written one.  A failed build raises with the
@@ -50,6 +51,12 @@ _SIGNATURES = {
     # T, W, i0, j0, L, thr, ld, circular, genome, stream
     "spk_row_select": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _ll,
                        _i, _i, _i, _i, _i, _f, _i, _i, _i, _vp],
+    # a, b, w, E, offs, nbr, wadj, margin_add, out, stream
+    "spk_aracne_scan": [_vp, _vp, _vp, _ll, _vp, _vp, _vp, _d, _vp, _vp],
+    # p1, p2, dist, mi, n, len, stream
+    "spk_format_lengths": [_vp, _vp, _vp, _vp, _ll, _vp, _vp],
+    # p1, p2, dist, flags, mi, n, starts, out, stream
+    "spk_format_rows": [_vp, _vp, _vp, _vp, _vp, _ll, _vp, _vp, _vp],
 }
 
 

@@ -5,7 +5,14 @@ sample weights -> MI save threshold (auto: tournament) -> all-pairs MI
 sweep -> Tukey outlier thresholds -> sort -> ARACNE -> couplings/outlier
 outputs.  Host stages run the port's own copies of the reference's host
 modules (``core``, ``io``, ``native``, ``utils``); the device stages run on
-``spydrpick_torch.device.default_device()``.
+``spydrpick_torch.device.default_device()``.  On a card the sorted edges
+stay there: ARACNE's flags (``ops/aracne.py``) and the couplings file's
+bytes (``ops/format.py``) are computed by CUDA kernels, and the host
+receives the flags and the finished bytes.  On the CPU those two stages
+run the native host copies (``engine/aracne.py:run_aracne``,
+``io/writers.py:write_couplings``), which are many times faster there
+than the kernels' plain versions (PERF.md §6).  The outliers file and the
+outlier-node FASTA are written on the host from the host EdgeSet.
 
 In a run of several processes (``parallel/distributed.py``) every rank
 runs every stage and ends with the same results; only rank 0 writes
@@ -22,6 +29,7 @@ import sys
 import time
 
 import numpy as np
+import torch
 
 from spydrpick_torch.core.alignment import Alignment
 from spydrpick_torch.core.filter import FilterParams, filter_list
@@ -29,6 +37,7 @@ from spydrpick_torch.io.fasta import read_fasta, write_fasta
 from spydrpick_torch.io.loci import parse_loci_list
 from spydrpick_torch.io.writers import (
     write_couplings,
+    write_couplings_rows,
     write_distance_matrix,
     write_outliers,
     write_sample_weights,
@@ -39,11 +48,12 @@ from spydrpick_torch.core.weights import (
     cache_sample_weights,
     hamming_distance_matrix,
 )
-from spydrpick_torch.device import default_device, synchronize
+from spydrpick_torch.device import default_device, synchronize, to_host
 from spydrpick_torch.engine.aracne import DEFAULT_EDGE_THRESHOLD, run_aracne
 from spydrpick_torch.engine.outliers import outlier_thresholds
-from spydrpick_torch.engine.solver import EdgeSet, EngineConfig, MIEngine
+from spydrpick_torch.engine.solver import DeviceEdges, EdgeSet, EngineConfig, MIEngine
 from spydrpick_torch.engine.threshold import default_mi_values, determine_mi_threshold
+from spydrpick_torch.ops.aracne import aracne_flags
 from spydrpick_torch.parallel.distributed import is_writer, world_size
 from spydrpick_torch.utils.stopwatch import Stopwatch
 from spydrpick_torch.utils.uniquefile import unique_path
@@ -114,9 +124,21 @@ def _log(opts, *msg):
         print("spydrpick-torch:", *msg, file=sys.stdout, flush=True)
 
 
-def load_and_preprocess(opts: PipelineOptions) -> Alignment:
+def load_and_preprocess(opts: PipelineOptions, timings: dict | None = None) -> Alignment:
     """Load, trim, filter and weight the alignment (SpydrPick.cpp:163-333);
-    the same steps as the reference's load_and_preprocess."""
+    the same steps as the reference's load_and_preprocess.  ``timings``
+    receives each part's wall seconds: parse_s (the FASTA and the mappings
+    list), lists_s (include, exclude and sample lists, and their subsets),
+    filter_s (the filter rules and their subset), weights_s and outputs_s
+    (the optional side files)."""
+    tm = dict.fromkeys(("parse_s", "lists_s", "filter_s", "weights_s", "outputs_s"), 0.0)
+    clock = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        tm[name] += now - clock[0]
+        clock[0] = now
+
     mappings = (
         parse_loci_list(opts.mappings_list, opts.input_indexing_base)
         if opts.mappings_list
@@ -125,10 +147,12 @@ def load_and_preprocess(opts: PipelineOptions) -> Alignment:
     alignment = read_fasta(opts.alignmentfile, mappings=mappings, genome_size=opts.genome_size)
     _log(opts, f'alignment "{alignment.id_string}": '
          f"{alignment.n_samples} samples x {alignment.n_loci} loci")
+    lap("parse_s")
 
     if opts.output_alignment and is_writer():
         write_fasta(unique_path(f"{opts.output_dir}/{alignment.id_string}.input.fasta"),
                     alignment)
+    lap("outputs_s")
 
     if opts.include_list:
         incl = set(parse_loci_list(opts.include_list, opts.input_indexing_base).tolist())
@@ -144,6 +168,7 @@ def load_and_preprocess(opts: PipelineOptions) -> Alignment:
         )
         alignment = alignment.subset(keep)
         _log(opts, f"exclude list -> {alignment.n_loci} loci")
+    lap("lists_s")
 
     if not opts.no_filter_alignment:
         keep = filter_list(alignment, FilterParams(opts.maf_threshold, opts.gap_threshold))
@@ -155,11 +180,13 @@ def load_and_preprocess(opts: PipelineOptions) -> Alignment:
             alignment = alignment.subset(keep)
         if opts.verbose:
             print(alignment.statistics_string(), flush=True)
+    lap("filter_s")
 
     if opts.sample_list:
         alignment = alignment.subsample(
             parse_loci_list(opts.sample_list, opts.input_indexing_base))
         _log(opts, f"sample list -> {alignment.n_samples} samples")
+    lap("lists_s")
 
     alignment = cache_sample_weights(
         alignment,
@@ -168,6 +195,7 @@ def load_and_preprocess(opts: PipelineOptions) -> Alignment:
         threshold=opts.sample_reweighting_threshold,
     )
     _log(opts, f"effective sample size = {alignment.effective_size:.2f}")
+    lap("weights_s")
 
     if opts.output_sample_weights and is_writer():
         with open(unique_path(f"{opts.output_dir}/{alignment.id_string}.weights"), "w") as f:
@@ -185,6 +213,9 @@ def load_and_preprocess(opts: PipelineOptions) -> Alignment:
             unique_path(f"{opts.output_dir}/{alignment.id_string}.distance_matrix"), "w"
         ) as f:
             write_distance_matrix(f, hamming_distance_matrix(alignment))
+    lap("outputs_s")
+    if timings is not None:
+        timings.update(tm)
     return alignment
 
 
@@ -209,11 +240,15 @@ def engine_config(opts: PipelineOptions) -> EngineConfig:
 def run_pipeline(opts: PipelineOptions, write_outputs: bool = True,
                  timings: dict | None = None) -> PipelineResult:
     """``timings`` (optional dict) receives per-stage wall seconds:
-    preprocess_s, engine_build_s, threshold_s, sweep_s (with the engine's
-    phases under sweep_phases), sort_s, aracne_s (aracne_phases), write_s
-    (write_phases: each file's seconds) and total_s.  Each stage boundary
-    waits for the device first, so a stage's time includes its device
-    work."""
+    preprocess_s (preprocess_phases: ``load_and_preprocess``'s parts),
+    engine_build_s, threshold_s, sweep_s (with the engine's phases under
+    sweep_phases), sort_s, aracne_s (aracne_phases: on a card
+    ``aracne_flags``'s csr_s, scan_s and total_s, on the CPU
+    ``run_aracne``'s native_s), write_s (write_phases: each file's seconds,
+    and on a card the couplings file's format_s, copy_s and file_s) and
+    total_s.
+    Each stage boundary waits for the device first, so a stage's time
+    includes its device work."""
     device = default_device()
     if is_writer():
         os.makedirs(opts.output_dir, exist_ok=True)
@@ -228,7 +263,8 @@ def run_pipeline(opts: PipelineOptions, write_outputs: bool = True,
 
     timer = Stopwatch(sys.stdout if opts.verbose else None).start()
     t_st = time.perf_counter()
-    alignment = load_and_preprocess(opts)
+    tm["preprocess_phases"] = {}
+    alignment = load_and_preprocess(opts, tm["preprocess_phases"])
     t_st = _stage("preprocess_s", t_st)
 
     # sharded runs build the mesh before the tournament, so that with
@@ -297,20 +333,32 @@ def run_pipeline(opts: PipelineOptions, write_outputs: bool = True,
     _log(opts, f"outlier threshold={outlier_thr:.6f}")
     _log(opts, f"extreme outlier threshold={extreme_thr:.6f}")
 
-    edges = edges.sort_desc_on(device)  # sort_desc's order, from one device sort
+    # sort_desc's order from one device sort; on a card the sorted columns
+    # stay there for ARACNE and the couplings file, while the CPU runs the
+    # native host copies (the plain versions are far slower there)
+    edges, dev_edges = edges.sorted_on(device)
+    if not dev_edges.mi.is_cuda:
+        dev_edges = None
     t_st = _stage("sort_s", t_st)
 
+    flags, dev_flags = np.zeros(edges.n_edges, dtype=np.uint8), None
     if not opts.no_aracne and edges.n_edges:
         _log(opts, "run ARACNE")
         aracne_t: dict = {}
-        flags = run_aracne(
-            edges.ipos, edges.jpos, edges.mi, opts.aracne_edge_threshold,
-            timings=aracne_t,
-            verbose_out=sys.stdout if opts.verbose else None,
-        )
+        if dev_edges is not None:
+            dev_flags = aracne_flags(dev_edges.ipos, dev_edges.jpos, dev_edges.mi,
+                                     opts.aracne_edge_threshold, timings=aracne_t)
+            flags = to_host([dev_flags])[0]
+            _log(opts, f"ARACNE: {edges.n_edges} edges / {aracne_t['nodes']} nodes, longest "
+                 f"row {aracne_t['max_degree']}; csr {aracne_t['csr_s']:.3f}s, scan "
+                 f"{aracne_t['scan_s']:.3f}s on {device}")
+        else:
+            flags = run_aracne(edges.ipos, edges.jpos, edges.mi, opts.aracne_edge_threshold,
+                               timings=aracne_t,
+                               verbose_out=sys.stdout if opts.verbose else None)
         tm["aracne_phases"] = aracne_t
-    else:
-        flags = np.zeros(edges.n_edges, dtype=np.uint8)
+    elif dev_edges is not None:
+        dev_flags = torch.zeros(edges.n_edges, dtype=torch.uint8, device=device)
     t_st = _stage("aracne_s", t_st)
 
     result = PipelineResult(
@@ -322,25 +370,36 @@ def run_pipeline(opts: PipelineOptions, write_outputs: bool = True,
         extreme_outlier_threshold=extreme_thr,
     )
     if write_outputs and is_writer():
-        tm["write_phases"] = _write_outputs(opts, result)
+        tm["write_phases"] = _write_outputs(opts, result, dev_edges, dev_flags)
         _stage("write_s", t_st)
+    del dev_edges, dev_flags
 
     tm["total_s"] = timer.stop()
     _log(opts, f"analysis completed in {timer}")
     return result
 
 
-def _write_outputs(opts: PipelineOptions, res: PipelineResult) -> dict:
+def _write_outputs(opts: PipelineOptions, res: PipelineResult, dev_edges: DeviceEdges | None,
+                   dev_flags) -> dict:
     """Couplings + outliers + outlier-node FASTA (SpydrPick.cpp:423-510);
-    returns each one's seconds (couplings_s, outliers_s, nodes_s)."""
+    returns each one's seconds (couplings_s, outliers_s, nodes_s).  With
+    ``dev_edges`` (a card) the couplings rows are formatted there
+    (``write_couplings_rows``, whose format_s, copy_s and file_s join
+    them); else, and for the other files, on the host."""
     t0 = time.perf_counter()
+    phases: dict = {}
     al = res.alignment
     base = opts.output_indexing_base
     stem = f"{opts.output_dir}/{al.id_string}.{al.size_string()}.spydrpick_couplings"
 
     couplings_path = unique_path(f"{stem}.{base}-based.{res.edges.n_edges}edges")
-    with open(couplings_path, "w") as f:
-        write_couplings(f, res.edges, res.flags, al, base, opts.linear_genome)
+    if dev_edges is not None:
+        with open(couplings_path, "wb") as f:
+            write_couplings_rows(f, dev_edges.ipos, dev_edges.jpos, dev_edges.mi, dev_flags,
+                                 al, base, opts.linear_genome, timings=phases)
+    else:
+        with open(couplings_path, "w") as f:
+            write_couplings(f, res.edges, res.flags, al, base, opts.linear_genome)
     res.couplings_path = str(couplings_path)
     _log(opts, f'wrote network ({res.edges.n_edges} edges) to "{couplings_path}"')
     t1 = time.perf_counter()
@@ -362,4 +421,5 @@ def _write_outputs(opts: PipelineOptions, res: PipelineResult) -> dict:
     if 0 < len(nodes) < al.n_loci:
         write_fasta(unique_path(f"{opts.output_dir}/{al.id_string}.outlier_nodes.fasta"),
                     al.subset(nodes))
-    return {"couplings_s": t1 - t0, "outliers_s": t2 - t1, "nodes_s": time.perf_counter() - t2}
+    return {"couplings_s": t1 - t0, "outliers_s": t2 - t1, "nodes_s": time.perf_counter() - t2,
+            **phases}

@@ -130,6 +130,10 @@ def test_line_keys_and_types(port_run):
     for k in ("compute_s", "fetch_s", "wog_s", "n_items", "rerun_rows"):
         assert k in e2e["sweep_phases"], k
     assert "native_s" in e2e["aracne_phases"]
+    for k in ("parse_s", "lists_s", "filter_s", "weights_s", "outputs_s"):
+        assert k in e2e["preprocess_phases"], k
+    for k in ("couplings_s", "outliers_s", "nodes_s"):
+        assert k in e2e["write_phases"], k
     assert isinstance(e2e["edges"], int) and e2e["edges"] > 0
     assert e2e["peak_gib_all"] == ["not measured"] * 2
     # the CPU runs the kernels' plain versions: no launch counts

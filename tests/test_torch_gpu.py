@@ -405,6 +405,120 @@ def test_cuda_sort_desc_on_ties(cuda_device):
     i, j = i[keep][:E], j[keep][:E]
     mi = rng.choice(np.linspace(0.01, 0.5, 37), size=len(i))
     e = EdgeSet(i, j, mi, mi * rng.random(len(i)), rng.random(L))
-    got, want = e.sort_desc_on(cuda_device), e.sort_desc()
+    (got, dev), want = e.sorted_on(cuda_device), e.sort_desc()
     for f in ("ipos", "jpos", "mi", "mi_wog"):
         np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+    for f in ("ipos", "jpos", "mi"):
+        np.testing.assert_array_equal(getattr(dev, f).cpu().numpy(), getattr(want, f))
+
+
+def random_graph(rng, L, E, decimals=None):
+    """E distinct edges i < j over L nodes, weights in [0, 1) (rounded to
+    ``decimals`` for DPI ties), as int64 / f64 numpy arrays."""
+    keys = rng.choice(L * L, size=3 * E, replace=False)
+    i, j = keys // L, keys % L
+    keep = i < j
+    i, j = i[keep][:E], j[keep][:E]
+    mi = rng.random(len(i))
+    return i, j, mi if decimals is None else np.round(mi, decimals)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("thr", [0.0, float(np.finfo(np.float64).eps), 1e-3])
+@pytest.mark.parametrize("decimals", [None, 2])
+def test_cuda_aracne_flags_match_plain_and_native(cuda_device, thr, decimals):
+    """Kernel A's flags equal its plain version's and the native
+    owner-scan's bit for bit (hub node and ties included)."""
+    from spydrpick_torch.native import aracne_native
+    from spydrpick_torch.ops.aracne import aracne_flags, aracne_flags_plain
+
+    rng = np.random.default_rng(21)
+    i, j, mi = random_graph(rng, 900, 40_000, decimals)
+    hub = np.arange(1, 900)
+    i, j = np.concatenate([i, np.zeros(899, np.int64)]), np.concatenate([j, hub])
+    keys, first = np.unique(i * 900 + j, return_index=True)
+    i, j = i[first], j[first]
+    mi = np.concatenate([mi, rng.random(899)])[first]
+    t = lambda x: torch.from_numpy(x).to(cuda_device)
+    n0 = aracne_flags.launches
+    got = aracne_flags(t(i), t(j), t(mi), thr)
+    assert aracne_flags.launches == n0 + 1 and got.dtype == torch.uint8 and got.is_cuda
+    plain = aracne_flags_plain(t(i), t(j), t(mi), thr)
+    native = (~aracne_native.mark_indirect(i, j, mi, thr)).astype(np.uint8)
+    np.testing.assert_array_equal(got.cpu().numpy(), plain.cpu().numpy())
+    np.testing.assert_array_equal(got.cpu().numpy(), native)
+    assert 0 < int(got.sum()) < len(mi)
+
+
+@pytest.mark.gpu
+def test_cuda_aracne_flags_refusals(cuda_device):
+    from spydrpick_torch.ops.aracne import aracne_flags
+
+    t = lambda x, dt=torch.int64: torch.tensor(x, dtype=dt, device=cuda_device)
+    w = t([0.5, 0.4], torch.float64)
+    with pytest.raises(ValueError, match="ipos < jpos"):
+        aracne_flags(t([0, 3]), t([1, 2]), w)
+    with pytest.raises(ValueError, match="int64"):
+        aracne_flags(t([0, 1], torch.int32), t([1, 2]), w)
+    with pytest.raises(ValueError, match="float64"):
+        aracne_flags(t([0, 1]), t([1, 2]), w.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        aracne_flags(t([0, 9, 1, 9]).view(2, 2)[:, 0], t([1, 2]), w)
+    with pytest.raises(ValueError, match="int32"):
+        aracne_flags(t([0, 1]), t([1, 2**31]), w)
+    with pytest.raises(ValueError, match="repeats"):
+        aracne_flags(t([0, 0]), t([1, 1]), w)
+    assert aracne_flags(t([]), t([]), t([], torch.float64)).shape == (0,)
+
+
+def adversarial_mi(rng, n_random=20_000):
+    """Values whose "%.6f" is easy to get wrong: the binary-exact ties
+    (odd multiples of 2^-7 up to ln 5), one ulp either side of halfway
+    points, 5e-7 +- 1 ulp, subnormals, and random values up to ln 5."""
+    ties = np.arange(1, 207, 2) * 2.0**-7
+    half = (rng.integers(0, 1_609_438, n_random) + 0.5) / 1e6
+    tiny = np.array([0.0, 5e-7, np.nextafter(5e-7, 0), np.nextafter(5e-7, 1), 5e-324,
+                     2.2250738585072014e-308, 1e-310, 1e-300, 9.0e9, 123456.5])
+    return np.concatenate([ties, half, np.nextafter(half, 0), np.nextafter(half, 1), tiny,
+                           rng.random(n_random) * np.log(5)])
+
+
+@pytest.mark.gpu
+def test_cuda_format_rows_match_plain_python_and_native(cuda_device):
+    """Kernel B's bytes equal its plain version's, Python's f-string's
+    and the native formatter's."""
+    from spydrpick_torch.native import format_native
+    from spydrpick_torch.ops.format import format_couplings_rows, format_couplings_rows_plain
+
+    rng = np.random.default_rng(22)
+    mi = adversarial_mi(rng)
+    n = len(mi)
+    p1 = rng.integers(-5, 10**7, n)
+    p2 = rng.integers(0, 10**18, n)
+    d = rng.integers(-3, 10**5, n)
+    fl = rng.integers(0, 3, n).astype(np.uint8)
+    t = lambda x: torch.from_numpy(x).to(cuda_device)
+    n0 = format_couplings_rows.launches
+    got = format_couplings_rows(t(p1), t(p2), t(d), t(fl), t(mi))
+    assert format_couplings_rows.launches == n0 + 1 and got.is_cuda
+    got = got.cpu().numpy().tobytes()
+    want = "".join(f"{a} {b} {c} {int(f != 0)} {x:.6f}\n"
+                   for a, b, c, f, x in zip(p1, p2, d, fl, mi)).encode()
+    assert got == want
+    assert got == format_native.format_couplings(p1, p2, d, fl, mi)
+    plain = format_couplings_rows_plain(t(p1), t(p2), t(d), t(fl), t(mi))
+    assert plain.cpu().numpy().tobytes() == want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bad", [float("nan"), float("inf"), -1e-3, -0.0, 2.0**53 / 1e6])
+def test_cuda_format_rows_refusals(cuda_device, bad):
+    from spydrpick_torch.ops.format import format_couplings_rows
+
+    z = torch.zeros(2, dtype=torch.int64, device=cuda_device)
+    f = torch.zeros(2, dtype=torch.uint8, device=cuda_device)
+    mi = torch.tensor([0.5, bad], dtype=torch.float64, device=cuda_device)
+    with pytest.raises(ValueError, match="mi holds"):
+        format_couplings_rows(z, z, z, f, mi)
+    with pytest.raises(ValueError, match="int64"):
+        format_couplings_rows(z.int(), z, z, f, mi.abs())

@@ -1,5 +1,5 @@
 """The main path's host tail of the PyTorch port on the CPU: the edge sort
-as one torch sort (``EdgeSet.sort_desc_on``, ``desc_order``), the
+as one torch sort (``EdgeSet.sorted_on``, ``desc_order``), the
 tournament's draws overlapped with its pair chunks
 (``determine_mi_threshold``, ``MIEngine._pairs``) and the sweep's fetch
 (``device.to_host``, ``MIEngine._edges_to_host``).
@@ -53,7 +53,9 @@ def few_threads():
 def assert_sorts_agree(edges: EdgeSet) -> EdgeSet:
     """The torch sort on the CPU, numpy's sort_desc and the JAX package's
     give the same arrays in the same dtypes; returns the torch sort's."""
-    got = edges.sort_desc_on("cpu")
+    got, dev = edges.sorted_on("cpu")
+    for f in ("ipos", "jpos", "mi"):
+        np.testing.assert_array_equal(getattr(dev, f).numpy(), getattr(got, f), err_msg=f)
     want = edges.sort_desc()
     ref = JaxEdgeSet(*(getattr(edges, f) for f in FIELDS + ("colmax",))).sort_desc()
     for f in FIELDS:
