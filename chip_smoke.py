@@ -56,8 +56,10 @@ Phases (each raises on failure; nothing is caught):
   5. the main path at the size users run it: ``spydrpick_torch.cli.main``
      on the weighted S=3000 x L=30720 alignment (the bench.py "medium"
      generator) with the automatic threshold; K1 and B2 must each have
-     been launched once per block-row (60), the ARACNE kernel once and the
-     couplings formatter at least once, and its files must be
+     been launched once per block-row (60), the ARACNE kernel once, the
+     couplings formatter, the column counts and the pairs' crosstables at
+     least once (its -v log's preprocess and tournament phases printed),
+     and its files must be
      byte-identical to the ones pinned in ``MAIN_OUTPUTS`` (sha256);
   6. the library's exact-wog sweep at that size:
      ``MIEngine(al, EngineConfig(wog_fetch="full")).sweep(thr)`` at phase
@@ -83,6 +85,12 @@ Phases (each raises on failure; nothing is caught):
         bounds and shares; the plain versions on the host's CPU, equal to
         the native copies, timed beside them (the CPU pipeline runs the
         native copies);
+     d. the lead-in's kernels: ``column_state_counts`` on phase 5's codes
+        as the pipeline keeps them on the card, equal to its plain version
+        and to the host numpy counts it replaced (timed beside it), and
+        ``pairs_xtab`` on the tournament's 1,000,000 pairs, in one launch
+        and in the pipeline's chunks, bit-equal to its plain version; each
+        kernel's time, bound and share, and its launches in phase 5;
   7. checkpoint and resume at that size: a checkpointed sweep of the
      engine ``run_pipeline`` builds is killed from its progress callback
      after block-row 24; ``cli.main`` with phase 5's flags plus
@@ -159,12 +167,14 @@ ARGS``: ``cli.main(ARGS)``, then the launch counts as a JSON line; each
 has a time limit, and a rank that fails fails the phase.  Phase 12's
 killed run starts them as ``chip_smoke.py --rank-killed K ARGS``.
 The line before the last is a JSON object with each kernel's route,
-source, launches in its main-path phase (5 for K1, B2 and the ARACNE and
-formatter kernels, 6 for B3, 9 for B4 and B5, summed over the ranks), max
-error over phases 2-3, 6, 2d and 6c (0 for the exact comparisons),
-times at the main path's shape (the fixed14 block-row at i0=0; for B2 the
-lazy block-row at i0=0 and the tournament's threshold; for the ARACNE and
-formatter kernels phase 5's ~3.1M sorted edges), the bound
+source, launches in its main-path phase (5 for K1, B2, the ARACNE and
+formatter kernels and the lead-in's two, 6 for B3, 9 for B4 and B5,
+summed over the ranks), max error over phases 2-3, 6, 2d, 6c and 6d (0
+for the exact comparisons), times at the main path's shape (the fixed14
+block-row at i0=0; for B2 the lazy block-row at i0=0 and the tournament's
+threshold; for the ARACNE and formatter kernels phase 5's ~3.1M sorted
+edges; for the column counts phase 5's codes, for the pairs' crosstables
+the tournament's 1,000,000 pairs in one launch), the bound
 computed from those inputs and what sets it, and the
 library call's time where one PyTorch call computes the same function
 (B4), else null; the last line is ``{"ok": true, "device": {...}}``.
@@ -190,9 +200,9 @@ import torch
 
 K1_TOL = 1e-5  # same integer crosstables; only f32 log/sum order may differ
 # the card's published dense peaks (NVIDIA H100 SXM data sheet, 700 W) for
-# the roofline bounds: tensor-core int8 and bf16, f32 outside the tensor
-# cores, HBM3 bytes
-PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
+# the roofline bounds: tensor-core int8 and bf16, f32 and f64 outside the
+# tensor cores, HBM3 bytes
+PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12, "f64": 34e12}
 HBM_BYTES_S = 3.35e12
 EPILOGUE_OPS = 320  # f32 operations of one pair's mi_epilogue (csrc/mi_epilogue.cuh), ~
 S_BENCH, L_BENCH = 3000, 30720
@@ -215,14 +225,18 @@ WIDE_MI_VALUES = 1_000_000  # phase 10's CLI runs: the tournament's target edge 
 WIDE_STORE = 1 << 27  # phase 11's second sweep: a store that never grows at L_WIDE
 RECOUNT_ROWS = 6  # phase 11: block-rows recounted in float64 besides the first two and reruns
 REFERENCE_LOG = "scripts/results_r5/bench_1m_width_final.json"  # the reference's 1M run
-# phase 5's files (sha256), as the CLI wrote them on an H100 before its
-# sort, tournament and fetch moved onto the card (python -m
-# spydrpick_torch.host_ab): those moves change no output byte
+# phase 5's files (sha256), as the CLI wrote them on an H100 once the
+# pairs paths summed their crosstables exactly (pairs_xtab) and took their
+# MI in float64: the tournament's threshold moved from 0.0066821575 to
+# 0.0066821375, 2e-10 from the float64 tournament's, which kept 405 more
+# edges at MI 0.006682, and 50 outliers rows' wog moved by 1e-6 (python -m
+# spydrpick_torch.host_ab lists them; PERF.md); the moves of the
+# sort, the fetch, ARACNE and the writer onto the card changed no byte
 MAIN_OUTPUTS = {
-    "bench.3000x30720.spydrpick_couplings.1-based.3100919edges":
-        "bcc0b9343967778193bff15d8e52e1feeb2c0cc2f8099ade0c3fd37e216d0fc6",
+    "bench.3000x30720.spydrpick_couplings.1-based.3101324edges":
+        "481c49439a33bd34423ac602acf8824519a155a5315971a9059716acc7816a58",
     "bench.3000x30720.spydrpick_couplings.1-based.outliers":
-        "4a7b5540480cc126e11809c2c21273efd42ee180be4b3abd1a15a678e002c134",
+        "5fca76a6bccaba990a61feb3ec13e4669f12aeaa9bb49b194aa303571da6a5a1",
     "bench.outlier_nodes.fasta":
         "e560354968724f0cabe8466a3e84f7e67725b663f184e34499fd9e9921043a5e",
 }
@@ -920,13 +934,16 @@ def phase_parity(dev, td, S=256, L=2048):
 def phase_main(dev, td, fasta, wfile, S=S_BENCH, L=L_BENCH):
     from spydrpick_torch import cli
     from spydrpick_torch.ops.aracne import aracne_flags
+    from spydrpick_torch.ops.columns import column_state_counts
     from spydrpick_torch.ops.compact import row_select
     from spydrpick_torch.ops.format import format_couplings_rows
     from spydrpick_torch.ops.mi_kernels import mi_tile_single
+    from spydrpick_torch.ops.pairs import pairs_xtab
 
     out_dir = os.path.join(td, "out")
     torch.cuda.reset_peak_memory_stats(dev)
-    fns = (mi_tile_single, row_select, aracne_flags, format_couplings_rows)
+    fns = (mi_tile_single, row_select, aracne_flags, format_couplings_rows,
+           column_state_counts, pairs_xtab)
     for fn in fns:
         fn.launches = 0
     log = io.StringIO()
@@ -949,6 +966,9 @@ def phase_main(dev, td, fasta, wfile, S=S_BENCH, L=L_BENCH):
     if launches["aracne_flags"] != 1 or launches["format_couplings_rows"] < 1:
         raise AssertionError(f"main path launches {launches}: ARACNE's kernel must run once "
                              "and the couplings formatter at least once")
+    if launches["column_state_counts"] < 1 or launches["pairs_xtab"] < 1:
+        raise AssertionError(f"main path launches {launches}: the lead-in's counts and the "
+                             "tournament's crosstables must run on their kernels")
     files = sorted(os.listdir(out_dir))
     couplings = [f for f in files if re.search(r"spydrpick_couplings\.1-based\.\d+edges$", f)]
     outliers = [f for f in files if f.endswith(".outliers")]
@@ -975,6 +995,8 @@ def phase_main(dev, td, fasta, wfile, S=S_BENCH, L=L_BENCH):
           f"threshold {thr:.6f}, {n_edges} edges, top couplings row {' '.join(first)}")
     print("# stage seconds: " + ", ".join(f"{k} {v}" for k, v in stages.items()))
     print("# " + re.search(r"ARACNE: .*", text).group(0))
+    print("# " + re.search(r"preprocess phases: .*", text).group(0))
+    print("# " + re.search(r"tournament phases: .*", text).group(0))
     print(f"# peak device memory {peak / 2**30:.2f} GiB; launches {launches}", flush=True)
     print(f"# main path files byte-identical to the ones pinned (sha256): {digests}", flush=True)
     return launches, out_dir, float(stages["sweep_s"]), thr, n_edges
@@ -1266,6 +1288,91 @@ def phase_host_kernels(dev, al, edges):
                         "library_ms": None},
              "format": {"ms": b_ms, "plain_ms": b_plain_ms, "bound_ms": b_bound, "bound_by": b_by,
                         "library_ms": None}})
+
+
+TOURNAMENT_SEED = 1  # phase 5's --seed: the tournament's pair stream
+
+
+def tournament_pairs(L, seed=TOURNAMENT_SEED, iterations=10):
+    """The (ipos, jpos) of every iteration of the automatic threshold's
+    tournament at L columns, drawn as ``determine_mi_threshold`` draws them."""
+    from spydrpick_torch.engine import threshold as th
+
+    possible = L * (L - 1) // 2
+    pct = 1.0 - float(th.default_mi_values(L, 0)) / possible
+    n = th.determine_threshold_pairs(0, possible, pct)
+    rng = np.random.default_rng(seed)
+    draws = [th.sample_pairs(rng, n, L) for _ in range(iterations)]
+    return np.concatenate([d[0] for d in draws]), np.concatenate([d[1] for d in draws])
+
+
+def phase_lead_in(dev, al, main_launches):
+    """Phase 6d: the lead-in's kernels at the main path's data, each
+    bit-equal to its plain version: ``column_state_counts`` on phase 5's
+    codes as the pipeline keeps them on the card (``al.device_codes``),
+    with the host numpy passes it replaces timed beside it; ``pairs_xtab``
+    on the tournament's 1,000,000 pairs (one launch; and in the
+    pipeline's chunks); times, bounds and shares."""
+    from spydrpick_torch.engine.solver import pairs_chunk
+    from spydrpick_torch.ops.columns import column_state_counts, column_state_counts_plain
+    from spydrpick_torch.ops.pairs import pairs_xtab, pairs_xtab_plain
+
+    codes = al.device_codes
+    if codes is None or not codes.is_cuda:
+        raise AssertionError("phase 6d: the pipeline's alignment holds no codes on the card")
+    S, L = codes.shape
+    n0 = column_state_counts.launches
+    got = column_state_counts(codes)
+    plain = column_state_counts_plain(codes)
+    c_err = max_abs_diff(got.cpu().numpy(), plain.cpu().numpy())
+    host = al.codes
+    t0 = time.perf_counter()
+    host_counts = np.stack([np.count_nonzero(host == k, axis=0) for k in range(5)], 1)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    c_err = max(c_err, max_abs_diff(got.cpu().numpy(), host_counts))
+    if c_err != 0 or column_state_counts.launches != n0 + 1:
+        raise AssertionError(f"column counts kernel: differs from the plain version or the "
+                             f"host's (max |d| {c_err})")
+    c_ms = cuda_time_ms(lambda: column_state_counts(codes), 20)
+    c_plain_ms = cuda_time_ms(lambda: column_state_counts_plain(codes), 3)
+    c_bound, c_by = bound(0, "f32", S * L + 20 * L)
+    print(f"# 6d column counts kernel on phase 5's {S} x {L} codes on the card: counts equal "
+          f"to the plain version's and the host numpy's; {c_ms:.4f} ms, {share(c_ms, c_bound)}"
+          f" ({c_by}); plain {c_plain_ms:.3f} ms; host numpy (the five passes it replaces) "
+          f"{host_ms:.1f} ms; launches in phase 5's run "
+          f"{main_launches['column_state_counts']}", flush=True)
+
+    ipos, jpos = tournament_pairs(L)
+    P = len(ipos)
+    i_d, j_d = torch.from_numpy(ipos).to(dev), torch.from_numpy(jpos).to(dev)
+    ci, cj = codes.index_select(1, i_d), codes.index_select(1, j_d)
+    w = torch.from_numpy(np.asarray(al.weights, dtype=np.float32)).to(dev)
+    tab = pairs_xtab(ci, cj, w)
+    want = pairs_xtab_plain(ci, cj, w)
+    c = pairs_chunk(S)
+    chunked = torch.cat([pairs_xtab(ci[:, k:k + c].contiguous(), cj[:, k:k + c].contiguous(), w)
+                         for k in range(0, P, c)])
+    p_err = max(float((tab - want).abs().max()), float((chunked - tab).abs().max()))
+    if not (torch.equal(tab, want) and torch.equal(chunked, tab)):
+        raise AssertionError(f"pairs crosstable kernel: tables differ from the plain version's "
+                             f"or across chunks (max |d| {p_err})")
+    p_ms = cuda_time_ms(lambda: pairs_xtab(ci, cj, w), 5)
+    parts = [(ci[:, k:k + c].contiguous(), cj[:, k:k + c].contiguous()) for k in range(0, P, c)]
+    chunks_ms = cuda_time_ms(lambda: [pairs_xtab(a, b, w) for a, b in parts], 3)
+    p_plain_ms = cuda_time_ms(lambda: pairs_xtab_plain(ci, cj, w), 1)
+    p_bound, p_by = bound(S * P, "f64", 2 * S * P + 100 * P)
+    print(f"# 6d pairs crosstable kernel on the tournament's {P} pairs (S={S}): tables equal to "
+          f"the plain version's bit for bit, and in the pipeline's {len(parts)} chunks of {c} "
+          f"pairs; one launch {p_ms:.3f} ms, {share(p_ms, p_bound)} ({p_by}); in chunks "
+          f"{chunks_ms:.3f} ms; plain {p_plain_ms:.3f} ms; launches in phase 5's run "
+          f"{main_launches['pairs_xtab']}", flush=True)
+    del ci, cj, parts, tab, want, chunked
+    torch.cuda.empty_cache()
+    return ({"column_state_counts": c_err, "pairs_xtab": p_err},
+            {"column_state_counts": {"ms": c_ms, "plain_ms": c_plain_ms, "bound_ms": c_bound,
+                                     "bound_by": c_by, "library_ms": None},
+             "pairs_xtab": {"ms": p_ms, "plain_ms": p_plain_ms, "bound_ms": p_bound,
+                            "bound_by": p_by, "library_ms": None}})
 
 
 def cli_run(args, label):
@@ -2038,7 +2145,8 @@ def phase_full_width(dev, S=S_WIDE, L=L_WIDE):
     print(f"# 1M width S={S} L={L} codes, row_window {rw}, Lp {Lp}: engine built in "
           f"{build_s:.2f} s; sweep at {thr} - {WIDE_MARGIN}: {edges.n_edges} edges in {dt:.2f} s "
           f"= {pairs / dt:.4g} column pairs/s, compute_s {tm['compute_s']:.2f}, fetch_s "
-          f"{tm['fetch_s']:.2f}, wog_s {tm['wog_s']:.2f}, expand_s {tm['expand_s']:.2f}, n_items "
+          f"{tm['fetch_s']:.2f}, wog_s {tm['wog_s']:.2f} (pairs path {tm['wog_pairs_s']:.4f} for "
+          f"{tm['wog_candidates']} candidates), expand_s {tm['expand_s']:.2f}, n_items "
           f"{tm['n_items']}, rows swept again {again}; peak device memory {gib:.3f} GiB; "
           f"launches {launches}", flush=True)
     print(f"# 1M width from a {WIDE_STORE}-slot store: the same EdgeSet in {dt_big:.2f} s, "
@@ -2071,7 +2179,7 @@ def phase_full_width(dev, S=S_WIDE, L=L_WIDE):
     return dt, tm, gib
 
 
-def phase_bench(smi, main_thr, main_edges, main_sweep_s, L=L_BENCH):
+def phase_bench(smi, main_thr, main_edges, main_sweep_s, main_launches, L=L_BENCH):
     """Phase 13: ``python -m spydrpick_torch.bench`` at its default shape
     with BENCH_E2E_RUNS warm runs, held to phases 1 and 5."""
     env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
@@ -2098,11 +2206,12 @@ def phase_bench(smi, main_thr, main_edges, main_sweep_s, L=L_BENCH):
     n_rows = -(-L // TILE)
     per_row = {"mi_tile_single": n_rows, "row_select": n_rows, "mi_tile_dual": 0,
                "crosstab_tile": 0, "mi_epilogue": 0, "aracne_flags": 1,
-               "format_couplings_rows": 1}
+               "format_couplings_rows": 1, "column_state_counts": main_launches[
+                   "column_state_counts"], "pairs_xtab": main_launches["pairs_xtab"]}
     if len(e2e["launches_all"]) != BENCH_E2E_RUNS or any(
             run != per_row for run in e2e["launches_all"]):
         raise AssertionError(f"bench warm runs launched {e2e['launches_all']}, expected "
-                             f"{per_row} each")
+                             f"{per_row} each (the lead-in's as in phase 5)")
     busy, tr = e2e["busy_share"], e2e["traced_run"]
     if not isinstance(busy, float) or not 0 < busy <= 1:
         raise AssertionError(f"bench: the traced warm run's busy share is {busy}")
@@ -2116,9 +2225,11 @@ def phase_bench(smi, main_thr, main_edges, main_sweep_s, L=L_BENCH):
           f"{e2e['total_s']} s of {e2e['total_s_all']} (cold {e2e['cold_total_s']} s), "
           f"{e2e['edges']} edges at {e2e['mi_threshold']} as phase 5, peak GiB "
           f"{e2e['peak_gib_all']}; K1 and B2 {n_rows} per warm run, the ARACNE and formatter "
-          f"kernels once; {wall:.1f} s", flush=True)
+          f"kernels once, the counts {per_row['column_state_counts']} and the pairs' "
+          f"crosstables {per_row['pairs_xtab']} times as in phase 5; {wall:.1f} s", flush=True)
     print("# bench stage medians (s): " + ", ".join(f"{k} {e2e[k]}" for k in BENCH_STAGES)
-          + f"; preprocess phases {e2e['preprocess_phases']}; sweep phases "
+          + f"; preprocess phases {e2e['preprocess_phases']}; threshold phases "
+          f"{e2e['threshold_phases']}; sweep phases "
           f"{e2e['sweep_phases']}; aracne phases {e2e['aracne_phases']}; write phases "
           f"{e2e['write_phases']}", flush=True)
     print(f"# bench traced warm run: device busy share {busy} (wall {tr['wall_s']} s, busy "
@@ -2155,6 +2266,7 @@ def main() -> int:
         dual_launches, dual_err, lazy, al = phase_dual_sweep(dev, fasta, wfile)
         phase_sort(dev, lazy)
         host_err, host_ms = phase_host_kernels(dev, al, lazy)
+        lead_err, lead_ms = phase_lead_in(dev, al, launches)
         del lazy, al
         phase_checkpoint(dev, td, fasta, wfile, main_out, main_sweep_s)
         phase_rows_sharded(td, fasta, wfile, main_out)
@@ -2168,7 +2280,7 @@ def main() -> int:
     print(f"# phase 11 in {time.perf_counter() - t_wide:.1f} s; chip_smoke so far "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     t_bench = time.perf_counter()
-    phase_bench(smi, main_thr, main_edges, main_sweep_s)
+    phase_bench(smi, main_thr, main_edges, main_sweep_s, launches)
     print(f"# phase 13 in {time.perf_counter() - t_bench:.1f} s; chip_smoke in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     if "jax" in sys.modules:
@@ -2201,6 +2313,15 @@ def main() -> int:
          "replaces": "spydrpick_tpu/native/format.cpp:42",
          "launches": launches["format_couplings_rows"], "max_abs_err": host_err["format"],
          **host_ms["format"]},
+        {"name": "column_state_counts", "route": "cuda",
+         "source": "spydrpick_torch/csrc/column_counts.cu",
+         "replaces": "spydrpick_torch/core/alignment.py:70",
+         "launches": launches["column_state_counts"],
+         "max_abs_err": lead_err["column_state_counts"], **lead_ms["column_state_counts"]},
+        {"name": "pairs_xtab", "route": "cuda", "source": "spydrpick_torch/csrc/pairs_xtab.cu",
+         "replaces": "spydrpick_tpu/engine/solver.py:862",
+         "launches": launches["pairs_xtab"], "max_abs_err": lead_err["pairs_xtab"],
+         **lead_ms["pairs_xtab"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -40,9 +40,11 @@ temporary directory, ``run_pipeline`` with the automatic threshold and
 ``--seed 1``, once cold and BENCH_E2E_RUNS times warm (of the knobs only
 BENCH_TILE reaches them, as in bench.py).  ``end_to_end_s``
 holds each stage's median over the warm runs (bench.py runs one), the
-medians of the sweep's, the preprocess's, ARACNE's and the write's phases
-(``sweep_phases``, ``preprocess_phases``, ``aracne_phases``,
-``write_phases``), every warm run's total (``total_s_all``), peak device
+medians of the sweep's, the preprocess's, the tournament's, ARACNE's and
+the write's phases (``sweep_phases``, ``preprocess_phases``: parse_s with
+its read_s and decode_s, upload_s, lists_s, filter_s, weights_s,
+outputs_s; ``threshold_phases``: draws_s, device_s, pairs, total_s;
+``aracne_phases``, ``write_phases``), every warm run's total (``total_s_all``), peak device
 memory and kernel launches, the cold run's totals, the edge count and the
 threshold.  On a
 card one more warm run goes under torch.profiler (``stage_profile.
@@ -96,7 +98,9 @@ def kernel_counters() -> dict:
     launches (CPU calls run the plain version and do not count)."""
     from spydrpick_torch.ops import compact, mi_kernels
     from spydrpick_torch.ops.aracne import aracne_flags
+    from spydrpick_torch.ops.columns import column_state_counts
     from spydrpick_torch.ops.format import format_couplings_rows
+    from spydrpick_torch.ops.pairs import pairs_xtab
 
     return {"mi_tile_single": mi_kernels.mi_tile_single,
             "mi_tile_dual": mi_kernels.mi_tile_dual,
@@ -104,7 +108,9 @@ def kernel_counters() -> dict:
             "crosstab_tile": mi_kernels.crosstab_tile,
             "mi_epilogue": mi_kernels.mi_epilogue,
             "aracne_flags": aracne_flags,
-            "format_couplings_rows": format_couplings_rows}
+            "format_couplings_rows": format_couplings_rows,
+            "column_state_counts": column_state_counts,
+            "pairs_xtab": pairs_xtab}
 
 
 def bench_data(S: int, L: int, unit_weights: bool):
@@ -217,7 +223,7 @@ def end_to_end(al, tile: int, runs: int, dev: torch.device) -> dict:
     e2e["cold_threshold_s"] = _r(cold[1].get("threshold_s", 0.0))
     e2e["cold_sweep_s"] = _r(cold[1].get("sweep_s", 0.0))
     e2e["sweep_phases"] = median_of([tm["sweep_phases"] for tm in warm])
-    for phases in ("preprocess_phases", "aracne_phases", "write_phases"):
+    for phases in ("preprocess_phases", "threshold_phases", "aracne_phases", "write_phases"):
         e2e[phases] = median_of([tm[phases] for tm in warm]) if phases in warm[0] else {}
     e2e["edges"] = int(results[0][0])
     e2e["mi_threshold"] = round(results[0][1], 6)

@@ -12,6 +12,11 @@ keep positions with
 Frequencies are unweighted (filtering runs before sample reweighting in
 the reference pipeline, src/SpydrPick.cpp:244 vs :321) and are taken
 relative to the total number of samples.
+
+The rule runs in float64 on the host over the (L, 5) counts of
+``Alignment.state_counts``; in a run with the codes on a card those are
+the card's counts (``ops/columns.py``), fetched once, so no host pass over
+the codes remains.
 """
 
 from __future__ import annotations

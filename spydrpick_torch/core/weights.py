@@ -12,6 +12,10 @@ mantissa bits and would round counts above 2^11; a bf16 matmul would
 round them above 256).  One f32 accumulation run covers fewer than 2^24
 columns; longer alignments flush partial counts into host float64 (exact
 below 2^53), as the reference does.
+
+The codes are read where they already are: an alignment with codes on
+the device (``Alignment.device_codes``) is read there, any other is
+uploaded for the products.
 """
 
 from __future__ import annotations
@@ -41,14 +45,16 @@ def _match_accum(sl: torch.Tensor, acc: torch.Tensor) -> None:
 def sample_match_counts(alignment: Alignment, tile: int = _COL_TILE,
                         device: torch.device | None = None) -> np.ndarray:
     """(S, S) float64 matrix of identical-position counts between samples
-    (gap == gap counts as a match)."""
+    (gap == gap counts as a match), from the alignment's device codes when
+    they lie on ``device``."""
     dev = default_device() if device is None else torch.device(device)
     # a float32 matmul must stay float32: TF32 would round the counts
     torch.backends.cuda.matmul.allow_tf32 = False
-    codes = alignment.codes
-    S, L = codes.shape
+    codes_d = getattr(alignment, "device_codes", None)
+    if codes_d is None or codes_d.device != dev:
+        codes_d = torch.from_numpy(alignment.codes).to(dev)
+    S, L = codes_d.shape
     ct = min(tile, max(((L + 127) // 128) * 128, 128))
-    codes_d = torch.from_numpy(codes).to(dev)
     acc64 = np.zeros((S, S), np.float64)
     acc = torch.zeros((S, S), dtype=torch.float32, device=dev)
     group_cols = 0

@@ -59,10 +59,13 @@ follows a check that found no overflow, so every saved row is whole: the
 reference's guards against overflowed or clobbered rows in a snapshot
 have nothing to guard here.
 
-The pairs paths (threshold tournament, lazy wog) are the reference's
-plain XLA code in plain torch: a compare/select/sum over samples with no
-atomics, so every result — and hence the tournament threshold and the
-output file — is deterministic on the card.
+The pairs paths (threshold tournament, lazy wog) gather the pairs'
+columns of the device codes with torch ops and sum their crosstables with
+``ops/pairs.py:pairs_xtab`` (a CUDA kernel on a card, its plain version
+on the CPU): float64 sums rounded once, exact for the weights the
+pipeline uses, so every table — and hence the tournament threshold and
+the output file — is the same bits whatever the chunking or the order of
+the pairs, and on the card and the CPU alike.
 """
 
 from __future__ import annotations
@@ -76,15 +79,17 @@ import numpy as np
 import torch
 
 from spydrpick_torch.core.alignment import Alignment
-from spydrpick_torch.core.alphabet import N_STATES
+from spydrpick_torch.core.alphabet import GAP_STATE, N_STATES
 from spydrpick_torch.device import default_device, synchronize, to_host
 from spydrpick_torch.engine import checkpoint as ckpt_mod
+from spydrpick_torch.ops.columns import column_state_counts
 from spydrpick_torch.ops.compact import EdgeStore, row_select
 from spydrpick_torch.ops.mi import mi_from_crosstabs
 from spydrpick_torch.ops.mi_kernels import BW, mi_tile_dual, mi_tile_single, split_bf16, to_slab
+from spydrpick_torch.ops.pairs import pairs_xtab, pairs_xtab_plain as codes_xtab  # noqa: F401
 from spydrpick_torch.parallel.distributed import is_writer
 
-# elements of one (S, 25, P) pairs-crosstable temporary (1 GiB of f32)
+# bytes of a pairs chunk's two (S, P) uint8 code gathers
 _PAIRS_BUDGET = 1 << 28
 # block-rows (not items: a row's windows are swept together) between two
 # reads of the edge store's count (the sweep's only host syncs besides
@@ -331,6 +336,14 @@ def build_device_data(alignment: Alignment, config: EngineConfig, device: torch.
     (``MIEngine``), so the sample-major slab one-hot is built only with
     ``keep_onehot`` (for comparisons with the reference's device data).
 
+    The codes are the alignment's device codes when they lie on
+    ``device`` (``Alignment.device_codes``: the pipeline uploads them once),
+    else the host codes uploaded here; they are padded to Lp on the device
+    (used as they are when no padding is needed), and presence, wo-gaps
+    presence and gaps follow from their per-column counts
+    (``ops/columns.py:column_state_counts``: the kernel on a card, its
+    plain version on the CPU), all on the device.
+
     ``samples=(lo, hi)``: only sample rows [lo, hi) of the one-hot, the
     weights and the codes are materialised (a sample shard, and S in the
     statics is hi - lo); presence, wo-gaps presence, gaps, the int8 mode
@@ -371,28 +384,36 @@ def build_device_data(alignment: Alignment, config: EngineConfig, device: torch.
         raise ValueError(f"sample range [{lo}, {hi}) outside [0, {S})")
     S, w = hi - lo, w[lo:hi]
 
-    codes = np.full((S, Lp), 255, dtype=np.uint8)
-    codes[:, :L] = alignment.codes[lo:hi]
-    codes_d = torch.from_numpy(codes).to(device)
+    codes_all = getattr(alignment, "device_codes", None)
+    if codes_all is not None and codes_all.device == device:
+        counts = alignment.column_counts
+    else:
+        codes_all = torch.tensor(alignment.codes, device=device)
+        counts = column_state_counts(codes_all)
+    if Lp == L and (lo, hi) == (0, alignment.n_samples):
+        codes_d = codes_all  # read-only here: shared with the alignment
+    else:
+        codes_d = torch.full((S, Lp), 255, dtype=torch.uint8, device=device)
+        codes_d[:, :L] = codes_all[lo:hi]
+    presence = torch.zeros((Lp, N_STATES), dtype=torch.float32, device=device)
+    presence[:L] = (counts > 0).to(torch.float32)
+    presence_wog = presence.clone()
+    presence_wog[:, GAP_STATE] = 0.0
     onehot = None
     if keep_onehot:
         states = torch.arange(N_STATES, dtype=torch.uint8, device=device)
         oh = (codes_d.view(S, Lp // BW, 1, BW) == states.view(1, 1, N_STATES, 1))
         onehot = oh.to(sdtype).reshape(S, Lp * N_STATES)
 
-    def _padded(x, fill, dtype):
-        out = np.full((Lp,) + x.shape[1:], fill, dtype=dtype)
-        out[:L] = x
-        return torch.from_numpy(out).to(device)
-
+    orig_pos = np.full(Lp, np.iinfo(np.int32).max // 4, dtype=np.int32)
+    orig_pos[:L] = alignment.translation
     data = DeviceData(
         onehot=onehot,
         weights=torch.from_numpy(w).to(device=device, dtype=torch.float32),
-        presence=_padded(alignment.state_presence, 0, np.float32),
-        presence_wog=_padded(alignment.state_presence_wo_gaps, 0, np.float32),
-        gap=_padded(alignment.gap_presence, False, bool),
-        orig_pos=_padded(alignment.translation.astype(np.int32),
-                         np.iinfo(np.int32).max // 4, np.int32),
+        presence=presence,
+        presence_wog=presence_wog,
+        gap=presence[:, GAP_STATE] > 0,
+        orig_pos=torch.from_numpy(orig_pos).to(device),
         codes=codes_d,
     )
     statics = SweepStatics(
@@ -501,34 +522,38 @@ def _wog_effective(data: DeviceData, st: SweepStatics, mi: torch.Tensor,
     return torch.where(gi[:, None] | gj[None, :], wog, mi)
 
 
-def codes_xtab(ci: torch.Tensor, cj: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
-    """(P, 5, 5) weighted joint-count tables of P column pairs from their
-    (S, P) uint8 codes and the (S,) weights: the joint state ``ci*5 + cj``
-    of every (sample, pair) cell is compared with the 25 joint states and
-    the weights summed over samples — a plain reduction, deterministic on
-    the card (no scatter/index_add atomics).  Pad rows (code 255) match
-    nothing."""
-    q = ci.to(torch.int32) * N_STATES + cj.to(torch.int32)          # (S, P)
-    k = torch.arange(N_STATES * N_STATES, dtype=torch.int32, device=q.device)
-    C = torch.where(q[:, None, :] == k[None, :, None],
-                    weights[:, None, None], 0.0).sum(dim=0)         # (25, P)
-    return C.T.reshape(-1, N_STATES, N_STATES)
+def pairs_chunk(S: int) -> int:
+    """Pairs per chunk of the pairs paths over S sample rows: the two
+    (S, P) uint8 code gathers within ``_PAIRS_BUDGET`` bytes, a multiple of
+    128 in [128, 65536] (44,672 at S=3000)."""
+    return max(128, min(65536, _PAIRS_BUDGET // (2 * S) // 128 * 128))
+
+
+# The pairs paths take the MI epilogue in float64 and round each MI to f32
+# once.  In f32 the entropies (magnitude ~3 at S=3000) cancel to an MI of
+# ~0.007 in steps of their ulp, 2^-22: the tournament's MI then sat 1.1e-7
+# from the float64 MI on average and its threshold could land a whole step
+# from the float64 tournament's; in float64 over pairs_xtab's exact tables
+# they sit 3e-10 from it (PERF.md, on an H100).  The sweep's epilogue (K1, B3,
+# B5) stays f32.
 
 
 def pairs_mi_core(data: DeviceData, st: SweepStatics, ipos, jpos, C) -> torch.Tensor:
     """Per-pair with-gaps MI (solver.py:894; mi.hpp:183-224) from the
-    pairs' (P, 5, 5) crosstables ``C``."""
-    return mi_from_crosstabs(C, data.presence[ipos], data.presence[jpos], st.pseudocount)
+    pairs' (P, 5, 5) crosstables ``C``, f32 from a float64 epilogue."""
+    return mi_from_crosstabs(C.double(), data.presence[ipos], data.presence[jpos],
+                             st.pseudocount).float()
 
 
 def pairs_mi_dual_core(data: DeviceData, st: SweepStatics, ipos, jpos, C):
-    """(mi, effective wog) per pair (solver.py:904): the wo-gaps MI reuses
-    the crosstable with the gap bit cleared from the presence, and falls
-    back to mi where neither column has gaps (mi.hpp:433,466-490 +
-    SpydrPick.hpp:106-107)."""
-    mi = mi_from_crosstabs(C, data.presence[ipos], data.presence[jpos], st.pseudocount)
+    """(mi, effective wog) per pair (solver.py:904), f32 from a float64
+    epilogue: the wo-gaps MI reuses the crosstable with the gap bit
+    cleared from the presence, and falls back to mi where neither column
+    has gaps (mi.hpp:433,466-490 + SpydrPick.hpp:106-107)."""
+    C = C.double()
+    mi = mi_from_crosstabs(C, data.presence[ipos], data.presence[jpos], st.pseudocount).float()
     wog = mi_from_crosstabs(C, data.presence_wog[ipos], data.presence_wog[jpos],
-                            st.pseudocount)
+                            st.pseudocount).float()
     return mi, torch.where(data.gap[ipos] | data.gap[jpos], wog, mi)
 
 
@@ -592,7 +617,7 @@ class MIEngine:
                                                device=self.device)),
                 0, 16383).to(torch.int32)
             self._w_digits = (w_q // 128, w_q % 128)  # (Sp,): zero past the samples
-        self._pairs_chunk = max(128, min(65536, _PAIRS_BUDGET // (st.S * 25) // 128 * 128))
+        self._pairs_chunk = pairs_chunk(st.S)
         self._row_ops = (None, None)  # (i0, row_operands(i0)) of the last row
 
     # ------------------------------------------------------------------ #
@@ -708,9 +733,11 @@ class MIEngine:
     # ------------------------------------------------------------------ #
     def pairs_table(self, ipos: torch.Tensor, jpos: torch.Tensor) -> torch.Tensor:
         """(P, 5, 5) weighted joint-count tables of explicit position pairs
-        over every sample (solver.py:862-891)."""
+        over every sample (solver.py:862-891): the pairs' codes gathered,
+        then ``pairs_xtab`` (the kernel on a card, its plain version on the
+        CPU)."""
         d = self.data
-        return codes_xtab(d.codes.index_select(1, ipos), d.codes.index_select(1, jpos),
+        return pairs_xtab(d.codes.index_select(1, ipos), d.codes.index_select(1, jpos),
                           d.weights)
 
     def _upload(self, x) -> torch.Tensor:
@@ -722,27 +749,36 @@ class MIEngine:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t
 
-    def _pairs(self, fn, blocks):
+    def _pairs(self, fn, blocks, device_s: "_DeviceSeconds | None" = None):
         """Run a pairs core over the pairs of ``blocks``, an iterable of
         (ipos, jpos) host arrays read as one stream, with their
         crosstables from ``pairs_table``; returns the per-pair outputs on
         the device, concatenated.  The stream is cut into chunks of
         ``_pairs_chunk`` pairs from its start, whatever its blocks, and
-        each chunk is launched as soon as its pairs have arrived: a pair's
-        f32 sum over samples depends on the chunk it is summed in, so a
-        stream's values are those of its pairs in one block."""
+        each chunk is launched as soon as its pairs have arrived.  A
+        pair's table does not depend on its chunk or its place in it while
+        the weights lie in ``pairs_xtab``'s exact range (ops/pairs.py);
+        outside it a table may move by one f32 ulp with them, and a
+        stream's values are then those of its pairs in one block.
+        ``device_s`` receives each chunk's device work as one span."""
         c = self._pairs_chunk
         outs = []
         ii = jj = torch.zeros(0, dtype=torch.int64, device=self.device)
+
+        def run(i, j):
+            t = None if device_s is None else device_s.start()
+            outs.append(fn(self.data, self.statics, i, j, self.pairs_table(i, j)))
+            if device_s is not None:
+                device_s.stop(t)
+
         for ib, jb in blocks:
             ii, jj = torch.cat((ii, self._upload(ib))), torch.cat((jj, self._upload(jb)))
             n = len(ii) // c * c
             for p in range(0, n, c):
-                i, j = ii[p:p + c], jj[p:p + c]
-                outs.append(fn(self.data, self.statics, i, j, self.pairs_table(i, j)))
+                run(ii[p:p + c], jj[p:p + c])
             ii, jj = ii[n:], jj[n:]
         if len(ii):
-            outs.append(fn(self.data, self.statics, ii, jj, self.pairs_table(ii, jj)))
+            run(ii, jj)
         if not outs:
             return torch.empty(0, dtype=torch.float32, device=self.device)
         return torch.cat(outs)
@@ -756,15 +792,22 @@ class MIEngine:
         wog = self._pairs(lambda *a: pairs_mi_dual_core(*a)[1], [(ipos, jpos)])
         return wog.cpu().numpy().astype(np.float64)
 
-    def pair_quantiles(self, blocks, iters: int, n_valid: int, k: int) -> np.ndarray:
+    def pair_quantiles(self, blocks, iters: int, n_valid: int, k: int,
+                       timings: dict | None = None) -> np.ndarray:
         """(iters,) float64: for each of ``iters`` consecutive samples of
         ``n_valid`` pairs, the ascending order statistic ``k`` of their
         MI — the threshold tournament, with only ``iters`` floats coming
         back to the host.  ``blocks``: the pairs as (ipos, jpos) host
         arrays, in any blocks (``_pairs``), e.g. each sample as it is
-        drawn."""
-        mi = self._pairs(pairs_mi_core, blocks)
-        return pairs_quantile_core(mi, iters, n_valid, k).cpu().numpy().astype(np.float64)
+        drawn.  ``timings`` receives device_s: the device seconds of the
+        chunks' gathers, crosstables and MI (CUDA events on a card, the
+        host clock on the CPU)."""
+        dev_s = _DeviceSeconds(self.device)
+        mi = self._pairs(pairs_mi_core, blocks, dev_s)
+        out = pairs_quantile_core(mi, iters, n_valid, k).cpu().numpy().astype(np.float64)
+        if timings is not None:
+            timings["device_s"] = dev_s.total()
+        return out
 
     # ------------------------------------------------------------------ #
     def new_store(self) -> EdgeStore:
@@ -946,9 +989,11 @@ class MIEngine:
         if s_m.size:
             thr_out, _ = outlier_thresholds(colmax)
             cand = np.flatnonzero(s_m >= thr_out)
-            # in (ipos, jpos) order: a pair's f32 sum over samples depends
-            # on its place in the batch, and sharded or resumed sweeps
-            # return their edges in other orders than one uninterrupted sweep
+            # in (ipos, jpos) order: sharded or resumed sweeps return their
+            # edges in other orders than one uninterrupted sweep, and for
+            # weights outside pairs_xtab's exact range a pair's table may
+            # move by one f32 ulp with its place in a chunk (ops/pairs.py);
+            # inside that range the order changes no bit
             cand = cand[np.lexsort((s_j[cand], s_i[cand]))]
         t0 = time.perf_counter()
         if cand.size:

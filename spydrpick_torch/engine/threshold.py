@@ -14,11 +14,15 @@ The draws overlap the device work: one worker thread makes them, in
 order, from the one generator, while the caller's thread launches each
 chunk of the pairs drawn so far (``MIEngine.pair_quantiles``).  The
 stream and its chunks are those of drawing every iteration first, so the
-threshold is the same bit for bit.
+threshold is the same bit for bit.  ``determine_mi_threshold(timings=)``
+says which of the two sets the stage's pace: draws_s (the worker's
+seconds in ``sample_pairs``, host clock) and device_s (the chunks' device
+work, ``MIEngine.pair_quantiles``).
 """
 
 from __future__ import annotations
 
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -58,11 +62,21 @@ def sample_pairs(rng: np.random.Generator, n_pairs: int,
     return collected // n_loci, collected % n_loci
 
 
+def _timed_draw(rng, n_pairs: int, n_loci: int, spent: list):
+    t0 = time.perf_counter()
+    out = sample_pairs(rng, n_pairs, n_loci)
+    spent.append(time.perf_counter() - t0)
+    return out
+
+
 def determine_mi_threshold(engine, n_values: int, threshold_pairs: int = 0,
                            iterations: int = 10, seed: int = 42,
-                           verbose_out=None) -> float:
+                           verbose_out=None, timings: dict | None = None) -> float:
     """Estimate the MI save threshold; ``engine`` is a
-    spydrpick_torch.engine.solver.MIEngine."""
+    spydrpick_torch.engine.solver.MIEngine.  ``timings`` receives draws_s
+    (the draws' seconds on the worker thread), device_s (the pair
+    chunks' device seconds), pairs (drawn in all) and total_s."""
+    t_start = time.perf_counter()
     n_loci = engine.L
     possible_pairs = n_loci * (n_loci - 1) // 2
     percentile = 1.0 - float(n_values) / possible_pairs
@@ -79,15 +93,21 @@ def determine_mi_threshold(engine, n_values: int, threshold_pairs: int = 0,
         print(f" ({pairs_n} pairs * {iterations} iterations)", file=verbose_out)
 
     rng = np.random.default_rng(seed)
+    spent: list[float] = []
+    quantile_t: dict = {}
     # one worker: the iterations are drawn in order, as one stream
     with ThreadPoolExecutor(max_workers=1) as pool:
-        draws = [pool.submit(sample_pairs, rng, pairs_n, n_loci) for _ in range(iterations)]
+        draws = [pool.submit(_timed_draw, rng, pairs_n, n_loci, spent)
+                 for _ in range(iterations)]
         try:
             thresholds = engine.pair_quantiles((d.result() for d in draws), iterations,
-                                               pairs_n, threshold_idx)
+                                               pairs_n, threshold_idx, timings=quantile_t)
         finally:
             for d in draws:
                 d.cancel()
+    if timings is not None:
+        timings.update(draws_s=sum(spent), device_s=quantile_t["device_s"],
+                       pairs=pairs_n * iterations, total_s=time.perf_counter() - t_start)
     if verbose_out is not None:
         for it, t in enumerate(thresholds):
             print(f"spydrpick-torch: {it + 1:2d}/{iterations} threshold "

@@ -23,6 +23,14 @@ from spydrpick_torch.core.alignment import Alignment
 from spydrpick_torch.core.alphabet import decode_codes, encode_bytes
 
 
+def _pinned(shape) -> np.ndarray:
+    """An uninitialised uint8 array in page-locked host memory, from which
+    a copy to a card needs no staging."""
+    import torch
+
+    return torch.empty(shape, dtype=torch.uint8, pin_memory=True).numpy()
+
+
 def _native_parser():
     """The native parse function, or None if the toolchain is missing."""
     try:
@@ -72,17 +80,22 @@ def read_fasta(
     path: str | os.PathLike,
     mappings: np.ndarray | None = None,
     genome_size: int | None = None,
+    pinned: bool = False,
+    timings: dict | None = None,
 ) -> Alignment:
     """Parse a FASTA file into an :class:`Alignment`.
 
     ``mappings``: optional per-column original-position indices
     (``--mappings-list``, reference README "Advanced usage").
     ``genome_size``: optional explicit genome size (``--genome-size``).
+    ``pinned``: the native parser decodes into page-locked memory, so that
+    the codes go to a card without a staging copy.  ``timings`` receives
+    the native parser's read_s and decode_s (``fasta_native.parse``).
     """
     path = pathlib.Path(path)
     native = _native_parser()
     if native is not None:
-        codes, names = native(path)
+        codes, names = native(path, _pinned if pinned else None, timings)
         names = [n if n else f"seq{k}" for k, n in enumerate(names)]
     else:
         codes, names = _numpy_parse(path)

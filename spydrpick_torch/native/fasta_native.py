@@ -37,9 +37,17 @@ def _load() -> ctypes.CDLL:
     return lib
 
 
-def parse(path: str) -> tuple[np.ndarray, list[str]]:
-    """(codes (S, L) uint8, sample names). Raises on malformed input."""
+def parse(path: str, alloc=None, timings: dict | None = None
+          ) -> tuple[np.ndarray, list[str]]:
+    """(codes (S, L) uint8, sample names). Raises on malformed input.
+    ``alloc(shape)`` gives the C-contiguous uint8 array the codes are
+    decoded into (a pinned buffer, say; by default ``np.empty``).  ``timings`` receives read_s (the first pass: the
+    file mapped, its bytes read and its records indexed) and decode_s (the
+    second: the codes decoded and the names copied)."""
+    import time
+
     lib = _load()
+    t0 = time.perf_counter()
     n = ctypes.c_int64()
     w = ctypes.c_int64()
     rc = lib.spydrpick_fasta_index(str(path).encode(), ctypes.byref(n), ctypes.byref(w))
@@ -56,7 +64,10 @@ def parse(path: str) -> tuple[np.ndarray, list[str]]:
     if rc == -3:
         raise ValueError(f"{path}: unaligned sequences (differing widths)")
     S, L = n.value, w.value
-    codes = np.empty((S, L), dtype=np.uint8)
+    t1 = time.perf_counter()
+    codes = np.empty((S, L), dtype=np.uint8) if alloc is None else alloc((S, L))
+    if codes.dtype != np.uint8 or codes.shape != (S, L) or not codes.flags.c_contiguous:
+        raise ValueError(f"alloc gave a {codes.dtype} array of shape {codes.shape}")
     namebuf_cap = 1 << 22
     namebuf = ctypes.create_string_buffer(namebuf_cap)
     rc = lib.spydrpick_fasta_parse(
@@ -66,5 +77,7 @@ def parse(path: str) -> tuple[np.ndarray, list[str]]:
     )
     if rc != 0:
         raise ValueError(f"{path}: FASTA parse failed (code {rc})")
+    if timings is not None:
+        timings.update(read_s=t1 - t0, decode_s=time.perf_counter() - t1)
     names = namebuf.raw.split(b"\0")[:S]
     return codes, [x.decode("utf-8", errors="replace") for x in names]

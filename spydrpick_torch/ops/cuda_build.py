@@ -5,8 +5,9 @@ all started together, and the objects are linked into one shared library
 with a plain C interface (no PyTorch headers, so the build takes
 seconds), at the first kernel launch of a process, into
 ``build/kernels/`` of the checkout.  ``ctypes`` loads it; the wrappers in
-``ops/mi_kernels.py``, ``ops/compact.py``, ``ops/aracne.py`` and
-``ops/format.py`` pass device pointers and
+``ops/mi_kernels.py``, ``ops/compact.py``, ``ops/aracne.py``,
+``ops/format.py``, ``ops/columns.py`` and ``ops/pairs.py`` pass device
+pointers and
 PyTorch's current CUDA stream.  The ranks of a sharded run may build at
 once: each compiles into files of its own and renames the library into
 place, so none loads a half-written one.  A failed build raises with the
@@ -57,6 +58,10 @@ _SIGNATURES = {
     "spk_format_lengths": [_vp, _vp, _vp, _vp, _ll, _vp, _vp],
     # p1, p2, dist, flags, mi, n, starts, out, stream
     "spk_format_rows": [_vp, _vp, _vp, _vp, _vp, _ll, _vp, _vp, _vp],
+    # codes, S, L, out, stream
+    "spk_column_counts": [_vp, _i, _i, _vp, _vp],
+    # ci, cj, w, S, P, out, stream
+    "spk_pairs_xtab": [_vp, _vp, _vp, _i, _ll, _vp, _vp],
 }
 
 

@@ -52,7 +52,6 @@ from spydrpick_torch.core.alphabet import N_STATES
 from spydrpick_torch.device import default_device, synchronize, to_host
 from spydrpick_torch.engine import checkpoint as ckpt_mod
 from spydrpick_torch.engine.solver import (
-    _PAIRS_BUDGET,
     DeviceData,
     EdgeSet,
     EngineConfig,
@@ -60,9 +59,10 @@ from spydrpick_torch.engine.solver import (
     SweepStatics,
     _wog_effective,
     build_device_data,
-    codes_xtab,
+    pairs_chunk,
 )
 from spydrpick_torch.ops.mi_kernels import crosstab_tile, mi_epilogue, xtab_to_f32
+from spydrpick_torch.ops.pairs import pairs_xtab
 
 # j-columns per B4 launch (a multiple of BW): bounds a block-row's
 # crosstable, its f32 copy and each all-reduce to 2560 x 40960 cells at
@@ -128,11 +128,11 @@ class ShardedEngineView(MIEngine):
         finished by B5;
       * ``pair_mi``, ``pair_wog``, ``pair_quantiles`` (tournament, lazy
         wog): the pairs' codes of every shard are all-gathered in shard
-        order and reduced over all samples with all the weights, the
-        single-device reduction on the same tensors, so the values are
-        the single-device ones bit for bit.  (Summing per-shard f32
-        crosstables, the reference's psum, reassociates the f32 sums and
-        moves ~10% of the printed 6-decimal wo-gaps values at S=3000.)
+        order and reduced over all samples with all the weights by
+        ``pairs_xtab``, the single-device op on the same tensors, so the
+        values are the single-device ones bit for bit.  (Summing per-shard
+        f32 crosstables, the reference's psum, reassociated f32 sums and
+        moved ~10% of the printed 6-decimal wo-gaps values at S=3000.)
 
     Every rank of a samples group must call these together."""
 
@@ -148,8 +148,8 @@ class ShardedEngineView(MIEngine):
         w = (np.ones(S) if alignment.weights is None
              else np.asarray(alignment.weights, dtype=np.float64))
         self._weights_all = torch.from_numpy(w).to(device=self.device, dtype=torch.float32)
-        # the gathered (S, 25, P) temporary spans every sample
-        self._pairs_chunk = max(128, min(65536, _PAIRS_BUDGET // (S * 25) // 128 * 128))
+        # the gathered (S, P) codes span every sample
+        self._pairs_chunk = pairs_chunk(S)
 
     def pairs_table(self, ipos: torch.Tensor, jpos: torch.Tensor) -> torch.Tensor:
         d = self.data
@@ -161,7 +161,7 @@ class ShardedEngineView(MIEngine):
         dist.all_gather(parts, pad, group=self.group)
         codes = torch.cat([p[:, :hi - lo] for p, (lo, hi) in zip(parts, self._shard_rows)],
                           dim=1)
-        return codes_xtab(codes[0], codes[1], self._weights_all)
+        return pairs_xtab(codes[0], codes[1], self._weights_all)
 
     def _split_row(self, i0: int, j0: int | None, W: int | None, dual: bool):
         """mi (and raw wog when ``dual``) of the item (i0, j0, W) through

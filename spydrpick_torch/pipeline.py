@@ -126,12 +126,21 @@ def _log(opts, *msg):
 
 def load_and_preprocess(opts: PipelineOptions, timings: dict | None = None) -> Alignment:
     """Load, trim, filter and weight the alignment (SpydrPick.cpp:163-333);
-    the same steps as the reference's load_and_preprocess.  ``timings``
-    receives each part's wall seconds: parse_s (the FASTA and the mappings
-    list), lists_s (include, exclude and sample lists, and their subsets),
-    filter_s (the filter rules and their subset), weights_s and outputs_s
-    (the optional side files)."""
-    tm = dict.fromkeys(("parse_s", "lists_s", "filter_s", "weights_s", "outputs_s"), 0.0)
+    the same steps as the reference's load_and_preprocess.  On a card the
+    parser decodes into pinned memory and the codes go to the card once,
+    right after the parse (``Alignment.device_codes``): the lists' and the
+    filter's subsets, the filter's counts (``ops/columns.py``) and the
+    computed weights read that copy, and so does the engine
+    (``build_device_data``).  On the CPU the host codes are the only
+    codes.  ``timings`` receives each part's wall seconds: parse_s (the
+    FASTA and the mappings list; of it, the native parser's read_s and
+    decode_s), upload_s (the codes' copy to the card, 0 on the CPU),
+    lists_s (include, exclude and sample lists, and their subsets),
+    filter_s (the counts, the filter rules and their subset), weights_s
+    and outputs_s (the optional side files)."""
+    device = default_device()
+    tm = dict.fromkeys(("parse_s", "read_s", "decode_s", "upload_s", "lists_s", "filter_s",
+                        "weights_s", "outputs_s"), 0.0)
     clock = [time.perf_counter()]
 
     def lap(name: str) -> None:
@@ -144,10 +153,15 @@ def load_and_preprocess(opts: PipelineOptions, timings: dict | None = None) -> A
         if opts.mappings_list
         else None
     )
-    alignment = read_fasta(opts.alignmentfile, mappings=mappings, genome_size=opts.genome_size)
+    alignment = read_fasta(opts.alignmentfile, mappings=mappings, genome_size=opts.genome_size,
+                           pinned=device.type == "cuda", timings=tm)
     _log(opts, f'alignment "{alignment.id_string}": '
          f"{alignment.n_samples} samples x {alignment.n_loci} loci")
     lap("parse_s")
+    if device.type == "cuda":
+        alignment.device_codes = torch.from_numpy(alignment.codes).to(device, non_blocking=True)
+        synchronize(device)
+        lap("upload_s")
 
     if opts.output_alignment and is_writer():
         write_fasta(unique_path(f"{opts.output_dir}/{alignment.id_string}.input.fasta"),
@@ -193,6 +207,7 @@ def load_and_preprocess(opts: PipelineOptions, timings: dict | None = None) -> A
         weights_file=opts.sample_weights,
         no_reweighting=opts.no_sample_reweighting,
         threshold=opts.sample_reweighting_threshold,
+        device=device,
     )
     _log(opts, f"effective sample size = {alignment.effective_size:.2f}")
     lap("weights_s")
@@ -212,7 +227,7 @@ def load_and_preprocess(opts: PipelineOptions, timings: dict | None = None) -> A
         with open(
             unique_path(f"{opts.output_dir}/{alignment.id_string}.distance_matrix"), "w"
         ) as f:
-            write_distance_matrix(f, hamming_distance_matrix(alignment))
+            write_distance_matrix(f, hamming_distance_matrix(alignment, device=device))
     lap("outputs_s")
     if timings is not None:
         timings.update(tm)
@@ -241,7 +256,9 @@ def run_pipeline(opts: PipelineOptions, write_outputs: bool = True,
                  timings: dict | None = None) -> PipelineResult:
     """``timings`` (optional dict) receives per-stage wall seconds:
     preprocess_s (preprocess_phases: ``load_and_preprocess``'s parts),
-    engine_build_s, threshold_s, sweep_s (with the engine's phases under
+    engine_build_s, threshold_s (with the automatic threshold,
+    threshold_phases: ``determine_mi_threshold``'s draws_s, device_s,
+    pairs and total_s), sweep_s (with the engine's phases under
     sweep_phases), sort_s, aracne_s (aracne_phases: on a card
     ``aracne_flags``'s csr_s, scan_s and total_s, on the CPU
     ``run_aracne``'s native_s), write_s (write_phases: each file's seconds,
@@ -266,6 +283,8 @@ def run_pipeline(opts: PipelineOptions, write_outputs: bool = True,
     tm["preprocess_phases"] = {}
     alignment = load_and_preprocess(opts, tm["preprocess_phases"])
     t_st = _stage("preprocess_s", t_st)
+    _log(opts, "preprocess phases: " + ", ".join(
+        f"{k} {v:.4f}s" for k, v in tm["preprocess_phases"].items()))
 
     # sharded runs build the mesh before the tournament, so that with
     # sample shards the tournament runs on them too (pipeline.py:248-269)
@@ -292,14 +311,19 @@ def run_pipeline(opts: PipelineOptions, write_outputs: bool = True,
     if mi_threshold < 0:
         top_pairs = default_mi_values(alignment.n_loci, opts.mi_values)
         _log(opts, f"determine MI threshold for saving approx. {top_pairs} top pairs")
+        tm["threshold_phases"] = {}
         mi_threshold = determine_mi_threshold(
             engine, top_pairs,
             threshold_pairs=opts.mi_threshold_pairs,
             iterations=opts.mi_threshold_iterations,
             seed=opts.seed,
             verbose_out=sys.stdout if opts.verbose else None,
+            timings=tm["threshold_phases"],
         )
         _log(opts, f"MI save threshold = {mi_threshold:.6f}")
+        _log(opts, "tournament phases: " + ", ".join(
+            f"{k} {v:.4f}s" if k.endswith("_s") else f"{k} {v}"
+            for k, v in tm["threshold_phases"].items()))
     else:
         _log(opts, f"user-defined MI save threshold = {mi_threshold:.6f}")
     t_st = _stage("threshold_s", t_st)

@@ -11,8 +11,8 @@ Generates the bench.py "medium" alignment (uniform states, 5% gaps,
 weights uniform in [0.1, 1), ``numpy.random.default_rng(seed)``), writes
 it as FASTA plus a weights file into a temporary directory, and runs
 ``run_pipeline`` on it ``--runs`` times in one process (the automatic
-threshold, ``--seed 1``), printing each run's stage seconds and peak
-device memory.  Then it runs two more sweeps of the pipeline's lazy-wog
+threshold, ``--seed 1``), printing each run's stage seconds, its
+preprocess, tournament and sweep phases and its peak device memory.  Then it runs two more sweeps of the pipeline's lazy-wog
 engine and two exact-wog sweeps (``wog_fetch="full"``, the library
 default: B3 instead of K1), untraced, printing each one's seconds
 (``MIEngine.sweep``'s timings) and peak device memory, and traces one
@@ -220,7 +220,9 @@ def main(argv=None) -> int:
             print(json.dumps({"run": run, "edges": res.edges.n_edges,
                               "threshold": res.mi_threshold, **flat,
                               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-                              "sweep_phases": tm.get("sweep_phases")}), flush=True)
+                              **{k: tm.get(k) for k in ("preprocess_phases",
+                                                        "threshold_phases", "sweep_phases")}}),
+                  flush=True)
 
         al = load_and_preprocess(opts)
         engine = MIEngine(al, engine_config(opts))

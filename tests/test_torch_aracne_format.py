@@ -329,6 +329,9 @@ def test_run_pipeline_cpu_writes_host_writer_bytes(tmp_path, monkeypatch):
     assert plain.getvalue() == got
     assert "native_s" in tm["aracne_phases"]
     assert set(tm["write_phases"]) == {"couplings_s", "outliers_s", "nodes_s"}
-    assert {"parse_s", "lists_s", "filter_s", "weights_s", "outputs_s"} == set(
-        tm["preprocess_phases"])
-    assert sum(tm["preprocess_phases"].values()) <= tm["preprocess_s"] + 1e-3
+    pre = tm["preprocess_phases"]
+    laps = {"parse_s", "upload_s", "lists_s", "filter_s", "weights_s", "outputs_s"}
+    assert laps | {"read_s", "decode_s"} == set(pre)
+    assert sum(pre[k] for k in laps) <= tm["preprocess_s"] + 1e-3
+    assert pre["read_s"] + pre["decode_s"] <= pre["parse_s"] + 1e-3  # the parser's parts
+    assert pre["upload_s"] == 0.0  # the CPU: the host codes are the only codes

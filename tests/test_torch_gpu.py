@@ -522,3 +522,148 @@ def test_cuda_format_rows_refusals(cuda_device, bad):
         format_couplings_rows(z, z, z, f, mi)
     with pytest.raises(ValueError, match="int64"):
         format_couplings_rows(z.int(), z, z, f, mi.abs())
+
+
+# ---------------------------------------------------------------- lead-in
+
+def lead_in_codes(rng, S, L):
+    """Codes 0..4 with pad cells (255) and a whole pad column."""
+    codes = rng.integers(0, 5, size=(S, L)).astype(np.uint8)
+    codes[rng.random((S, L)) < 0.03] = 255
+    codes[:, L // 2] = 255
+    return codes
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 1), (1, 7), (3, 4), (257, 1021), (600, 4096),
+                                   (3000, 30720)])
+def test_cuda_column_counts_match_plain(cuda_device, shape):
+    from spydrpick_torch.ops.columns import column_state_counts, column_state_counts_plain
+
+    codes = torch.from_numpy(lead_in_codes(np.random.default_rng(sum(shape)), *shape))
+    want = column_state_counts_plain(codes)
+    n0 = column_state_counts.launches
+    got = column_state_counts(codes.to(cuda_device))
+    torch.cuda.synchronize()
+    assert column_state_counts.launches == n0 + 1
+    assert got.dtype == torch.int32 and got.is_cuda
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(column_state_counts_plain(codes.to(cuda_device)).cpu(), want)
+
+
+@pytest.mark.gpu
+def test_cuda_column_counts_unaligned_rows_and_refusals(cuda_device):
+    """Rows that do not start at a multiple of 4 bytes (L % 4 == 0 but an
+    odd data pointer) take the byte path and count the same; what the
+    kernel does not take is refused."""
+    from spydrpick_torch.ops.columns import column_state_counts, column_state_counts_plain
+
+    rng = np.random.default_rng(7)
+    S, L = 130, 512
+    buf = torch.from_numpy(lead_in_codes(rng, 1, S * L + 1).ravel()).to(cuda_device)
+    codes = buf[1:].view(S, L)
+    assert codes.data_ptr() % 4 == 1 and codes.is_contiguous()
+    assert torch.equal(column_state_counts(codes), column_state_counts_plain(codes))
+    ok = codes.contiguous()
+    for bad in (ok.to(torch.int32), ok[:, ::2], ok.reshape(-1)):
+        with pytest.raises(ValueError, match="column_state_counts"):
+            column_state_counts(bad)
+
+
+def lead_in_weights(kind, S, rng):
+    if kind == "unit":
+        return np.ones(S, np.float32)
+    if kind == "computed":
+        return (1.0 / rng.integers(1, S + 1, S)).astype(np.float32)
+    if kind == "bench":
+        return (rng.random(S) * 0.9 + 0.1).astype(np.float32)
+    return (2.0 ** rng.uniform(-45, 0, S)).astype(np.float32)  # outside the exact range
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 1), (1, 33), (5, 1), (257, 613), (3000, 4097)])
+@pytest.mark.parametrize("kind", ["unit", "computed", "bench", "wide"])
+def test_cuda_pairs_xtab_match_plain(cuda_device, shape, kind):
+    """Bit-equal to the plain version for weights in the exact range (and
+    under a permutation of the pairs), within one f32 ulp outside it."""
+    from spydrpick_torch.ops.pairs import pairs_xtab, pairs_xtab_plain
+
+    S, P = shape
+    rng = np.random.default_rng(S + P)
+    ci = torch.from_numpy(lead_in_codes(rng, S, P)).to(cuda_device)
+    cj = torch.from_numpy(rng.integers(0, 5, size=(S, P)).astype(np.uint8)).to(cuda_device)
+    w = torch.from_numpy(lead_in_weights(kind, S, rng)).to(cuda_device)
+    n0 = pairs_xtab.launches
+    got = pairs_xtab(ci, cj, w)
+    torch.cuda.synchronize()
+    assert pairs_xtab.launches == n0 + 1 and got.shape == (P, 5, 5)
+    want = pairs_xtab_plain(ci.cpu(), cj.cpu(), w.cpu())
+    if kind == "wide":
+        ulp = torch.from_numpy(np.spacing(np.abs(want.numpy())))
+        assert bool(((got.cpu() - want).abs() <= ulp).all())
+        return
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(pairs_xtab_plain(ci, cj, w).cpu(), want)
+    perm = torch.from_numpy(rng.permutation(P)).to(cuda_device)
+    got_p = pairs_xtab(ci[:, perm].contiguous(), cj[:, perm].contiguous(), w)
+    assert torch.equal(got_p, got[perm])
+
+
+@pytest.mark.gpu
+def test_cuda_pairs_xtab_refusals(cuda_device):
+    from spydrpick_torch.ops.pairs import pairs_xtab
+
+    ci = torch.zeros((8, 40), dtype=torch.uint8, device=cuda_device)
+    w = torch.ones(8, dtype=torch.float32, device=cuda_device)
+    for bad in ((ci, ci[:, :20], w), (ci, ci.int(), w), (ci[:, ::2], ci[:, ::2], w),
+                (ci, ci, w.double()), (ci, ci, w[:7]), (ci, ci, w.cpu())):
+        with pytest.raises(ValueError, match="pairs_xtab"):
+            pairs_xtab(*bad)
+
+
+@pytest.mark.gpu
+def test_cuda_lead_in_runs_the_kernels(cuda_device, tmp_path, monkeypatch):
+    """On a card ``load_and_preprocess`` keeps the codes there, counts and
+    filters them with the kernel (no host pass), and the engine's
+    tournament tables come from ``pairs_xtab``: the same alignment, device
+    data and threshold as on the CPU, bit for bit."""
+    from spydrpick_torch.engine import threshold
+    from spydrpick_torch.io.fasta import write_fasta
+    from spydrpick_torch.ops.columns import column_state_counts
+    from spydrpick_torch.ops.pairs import pairs_xtab
+    from spydrpick_torch.pipeline import PipelineOptions, load_and_preprocess
+
+    rng = np.random.default_rng(3)
+    S, L = 200, 700
+    codes = rng.integers(0, 4, size=(S, L)).astype(np.uint8)
+    codes[:, 100:140] = 1                         # dropped by the filter
+    codes[rng.random((S, L)) < 0.04] = 4
+    path = str(tmp_path / "lead.fasta")
+    write_fasta(path, Alignment(codes, [f"s{k}" for k in range(S)], "lead", np.arange(L), L))
+    opts = PipelineOptions(alignmentfile=path, tile=128)
+    n_counts, n_pairs = column_state_counts.launches, pairs_xtab.launches
+    tm = {}
+    al = load_and_preprocess(opts, tm)
+    assert al.device_codes is not None and al.device_codes.is_cuda
+    assert column_state_counts.launches > n_counts and tm["upload_s"] > 0
+    assert "codes" not in al.__dict__  # the filter's subset: no host copy yet
+    monkeypatch.setenv("SPYDRPICK_TORCH_DEVICE", "cpu")
+    al_cpu = load_and_preprocess(opts)
+    monkeypatch.delenv("SPYDRPICK_TORCH_DEVICE")
+    np.testing.assert_array_equal(al.device_codes.cpu().numpy(), al_cpu.codes)
+    np.testing.assert_array_equal(al.codes, al_cpu.codes)
+    np.testing.assert_array_equal(al.weights, al_cpu.weights)
+    np.testing.assert_array_equal(al.state_counts, al_cpu.state_counts)
+    eng = MIEngine(al, EngineConfig(tile=128), device=cuda_device)
+    ref = MIEngine(al_cpu, EngineConfig(tile=128), device="cpu")
+    for f in ("presence", "presence_wog", "gap", "orig_pos", "codes", "weights"):
+        assert torch.equal(getattr(eng.data, f).cpu(), getattr(ref.data, f)), f
+    i = torch.from_numpy(rng.integers(0, eng.L - 1, 5000))
+    j = i + 1 + torch.from_numpy(rng.integers(0, 10**6, 5000)) % (eng.L - 1 - i)
+    assert torch.equal(eng.pairs_table(i.to(cuda_device), j.to(cuda_device)).cpu(),
+                       ref.pairs_table(i, j))
+    kw = dict(n_values=2000, threshold_pairs=5000, iterations=3, seed=9)
+    tm = {}
+    got = threshold.determine_mi_threshold(eng, timings=tm, **kw)
+    assert pairs_xtab.launches > n_pairs and tm["device_s"] > 0
+    assert abs(got - threshold.determine_mi_threshold(ref, **kw)) <= TOL
