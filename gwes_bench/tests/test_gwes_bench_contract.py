@@ -1,0 +1,127 @@
+"""BENCHMARK.json against the benchmark's contract, and every cell's files
+found by name."""
+
+from __future__ import annotations
+
+import json
+import re
+
+import pytest
+
+from gwes_bench import cells
+
+ROOT = cells.ROOT
+BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
+NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
+UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
+PATH = re.compile(r"^[A-Za-z0-9_.\-/]{1,200}$")
+METRIC_KEYS = {"name", "unit", "better", "source"}
+
+
+def _line(text: str) -> bool:
+    return 1 <= len(text) <= 200 and "\n" not in text and "\t" not in text
+
+
+def test_top_level_keys():
+    assert set(BENCH) == {"command", "paths", "run_seconds", "configs", "workloads",
+                          "end_to_end", "per_layer"}
+    assert 1 <= len(BENCH["paths"]) <= 16
+    assert all(PATH.match(p) and ".." not in p.split("/") for p in BENCH["paths"])
+    assert 1 <= len(BENCH["command"]) <= 32 and all(_line(w) for w in BENCH["command"])
+    assert isinstance(BENCH["run_seconds"], int) and 1 <= BENCH["run_seconds"] <= 51
+    assert len((ROOT / "BENCHMARK.json").read_bytes()) <= 64 * 1024
+
+
+def test_command_names_files_under_paths_only():
+    for word in BENCH["command"][1:]:
+        if "/" in word:
+            assert not word.startswith("/") and ".." not in word.split("/")
+            assert any(word.startswith(p + "/") for p in BENCH["paths"])
+            assert (ROOT / word).is_file()
+
+
+def _names():
+    for group in ("configs", "workloads", "end_to_end", "per_layer"):
+        for entry in BENCH[group]:
+            yield entry["name"]
+
+
+@pytest.mark.parametrize("name", sorted(set(_names())))
+def test_names_use_the_allowed_characters(name):
+    assert NAME.match(name)
+
+
+def test_names_are_unique():
+    for group in ("configs", "workloads"):
+        names = [e["name"] for e in BENCH[group]]
+        assert len(names) == len(set(names))
+    metrics = [m["name"] for m in BENCH["end_to_end"] + BENCH["per_layer"]]
+    assert len(metrics) == len(set(metrics))
+
+
+@pytest.mark.parametrize("metric", BENCH["end_to_end"] + BENCH["per_layer"],
+                         ids=lambda m: m["name"])
+def test_metric_entries(metric):
+    assert UNIT.match(metric["unit"])
+    assert metric["better"] in ("lower", "higher")
+    if metric in BENCH["end_to_end"]:
+        assert set(metric) - {"workloads"} == METRIC_KEYS | {"bound"}
+        assert metric["source"] in ("host_clock", "device_trace")
+        assert 0.01 <= metric["bound"] <= 0.25
+    else:
+        assert set(metric) - {"workloads"} == METRIC_KEYS | {"layer", "moves"}
+        assert metric["source"] in ("device_trace", "program_span", "program_counter",
+                                    "host_clock")
+        assert _line(metric["layer"])
+        assert metric["moves"] in {m["name"] for m in BENCH["end_to_end"]}
+    assert (cells.PACKAGE / "metrics" / f"{metric['name']}.py").is_file()
+    assert callable(cells.reader(metric["name"]))
+
+
+def test_configs():
+    used = {w["config"] for w in BENCH["workloads"]}
+    files = [c["file"] for c in BENCH["configs"]]
+    assert len(files) == len(set(files))
+    for c in BENCH["configs"]:
+        assert set(c) == {"name", "source", "file", "reduced", "why"}
+        assert c["name"] in used
+        assert any(c["file"].startswith(p + "/") for p in BENCH["paths"])
+        data = json.loads((ROOT / c["file"]).read_text())
+        assert len(c["reduced"]) <= 16 and all(NAME.match(k) and k in data
+                                               for k in c["reduced"])
+        assert sorted(c["reduced"]) == sorted(data["reduced"])
+        assert _line(c["source"]) and _line(c["why"])
+
+
+@pytest.mark.parametrize("workload", BENCH["workloads"], ids=lambda w: w["name"])
+def test_every_cell_resolves_its_files(workload):
+    assert set(workload) == {"name", "config", "traffic", "chips", "why"}
+    assert workload["chips"] in (1, 4) and _line(workload["why"])
+    assert NAME.match(workload["traffic"])
+    cell = cells.resolve(workload["name"])
+    assert cell.config["samples"] > 0 and cell.config["loci"] > 0
+    assert cell.traffic["loop"] == "closed"
+    reported = {m["name"] for m in cell.end_to_end}
+    assert "setup_s" in reported and len(reported) >= 2
+    assert cell.per_layer
+    from gwes_bench.reference.judge import EXACT
+
+    for key in EXACT:
+        assert cell.limits[key] == 0
+    assert set(cell.limits) >= set(EXACT) | {"thr_gap", "mi_gap", "misplaced",
+                                             "colmax_gap", "scans_differ"}
+
+
+def test_pairs_of_config_and_traffic_are_unique():
+    pairs = [(w["config"], w["traffic"]) for w in BENCH["workloads"]]
+    assert len(pairs) == len(set(pairs))
+
+
+def test_at_most_a_quarter_of_the_cells_take_four_chips():
+    four = sum(w["chips"] == 4 for w in BENCH["workloads"])
+    assert four <= max(1, len(BENCH["workloads"]) // 4)
+
+
+def test_the_check_fits_its_time_with_24_cells():
+    runs = 2 + 14 * 24
+    assert runs * (BENCH["run_seconds"] + 60) + 24 * 2 * 90 + 1200 <= 43200
