@@ -9,7 +9,8 @@ defaults and meanings, except:
   * ``--edge-capacity`` is accepted and unused: there is no per-row edge
     window; ``--store-capacity`` is the initial size of the sweep's device
     edge store, which grows when a sweep finds more edges;
-  * ``--profile-dir`` writes a torch.profiler trace of the sweep;
+  * ``--profile-dir`` writes a torch.profiler trace of the whole scan,
+    with the program's spans and counters beside it;
   * ``--checkpoint`` snapshots are the reference's format, written
     uncompressed, but one written by the JAX engine does not resume here
     (its sample axis is padded, so its key differs) and the sweep starts
@@ -168,7 +169,10 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--checkpoint", help="sweep checkpoint file: resume a killed run")
     g.add_argument("--checkpoint-every", type=int, default=16,
                    help="checkpoint every N block-rows")
-    g.add_argument("--profile-dir", help="write a torch.profiler trace of the sweep here")
+    g.add_argument("--profile-dir",
+                   help="write a torch.profiler trace of the whole scan here "
+                        "(scan_trace.json, scan_kernels.txt) with the program's spans and "
+                        "counters (scan_spans.json)")
     g.add_argument("--jax-cache-dir", default=None, help="TPU engine option, ignored here")
     g.add_argument("--sharded", action="store_true",
                    help="shard the sweep over every process of the run (torchrun or the "

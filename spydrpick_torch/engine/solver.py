@@ -88,6 +88,7 @@ from spydrpick_torch.ops.mi import mi_from_crosstabs
 from spydrpick_torch.ops.mi_kernels import BW, mi_tile_dual, mi_tile_single, split_bf16, to_slab
 from spydrpick_torch.ops.pairs import pairs_xtab, pairs_xtab_plain as codes_xtab  # noqa: F401
 from spydrpick_torch.parallel.distributed import is_writer
+from spydrpick_torch.utils.profiling import count, phases, span
 
 # bytes of a pairs chunk's two (S, P) uint8 code gathers
 _PAIRS_BUDGET = 1 << 28
@@ -760,7 +761,8 @@ class MIEngine:
         the weights lie in ``pairs_xtab``'s exact range (ops/pairs.py);
         outside it a table may move by one f32 ulp with them, and a
         stream's values are then those of its pairs in one block.
-        ``device_s`` receives each chunk's device work as one span."""
+        ``device_s`` receives each chunk's device work as one span; the
+        counter pair_chunks counts the chunks."""
         c = self._pairs_chunk
         outs = []
         ii = jj = torch.zeros(0, dtype=torch.int64, device=self.device)
@@ -770,6 +772,7 @@ class MIEngine:
             outs.append(fn(self.data, self.statics, i, j, self.pairs_table(i, j)))
             if device_s is not None:
                 device_s.stop(t)
+            count("pair_chunks")
 
         for ib, jb in blocks:
             ii, jj = torch.cat((ii, self._upload(ib))), torch.cat((jj, self._upload(jb)))
@@ -843,15 +846,19 @@ class MIEngine:
         its rows), then ``on_save(k)`` when k is in ``saves``.
         ``agree(n) -> n``: the largest count over the ranks that must
         re-run rows together (a samples group); identity when None.
-        Returns the rows swept again after an overflow."""
+        Returns the rows swept again after an overflow.  Each check is the
+        span check; the counters sweep_items and rows_reswept count the
+        items swept (reruns included) and the rows swept again."""
         T, L = self.tile, self.L
         most = max(1, L * (L - 1) // 2)
         ends = torch.zeros(len(rows), dtype=torch.int64, device=self.device)
-        first, rerun, t_last = 0, 0, time.perf_counter()
+        first, rerun, items, t_last = 0, 0, 0, time.perf_counter()
 
         def run(k):
+            nonlocal items
             for j0, W in self.row_windows(rows[k]):
                 self.row_edges(rows[k], j0, W, threshold, colmax, store)
+                items += 1
             ends[k:k + 1].copy_(store.count)  # device-side: the count after row k
 
         for k in range(len(rows)):
@@ -859,7 +866,8 @@ class MIEngine:
             if k + 1 - first < CHECK_ROWS and k + 1 < len(rows) and k not in saves:
                 continue
             while True:
-                got = ends[first:k + 1].tolist()  # the check's one host sync
+                with span("check"):
+                    got = ends[first:k + 1].tolist()  # the check's one host sync
                 n = got[-1] if agree is None else agree(got[-1])
                 if n <= store.capacity:
                     break
@@ -877,6 +885,8 @@ class MIEngine:
             if k in saves:
                 on_save(k)
             first, t_last = k + 1, time.perf_counter()
+        count("sweep_items", items)
+        count("rows_reswept", rerun)
         return rerun
 
     def sweep(self, threshold: float, progress=None, checkpoint_path: str | None = None,
@@ -902,60 +912,63 @@ class MIEngine:
         resolve), n_rows (block-rows swept by this call), n_items (their
         items, ``row_windows``), rerun_rows (block-rows swept again after a
         store overflow) and, in codes storage, expand_s (the device seconds
-        of the operands' expansions, reruns included)."""
+        of the operands' expansions, reruns included): the first four are
+        the seconds of the spans rows, rows.save, fetch and wog.  The
+        counter edges_stored counts the edges returned."""
         st, dev = self.statics, self.device
         L, Lp = st.L, st.Lp
         synchronize(dev)
         self._expand_s = _DeviceSeconds(dev)
-        t0 = time.perf_counter()
-        key = ckpt_mod.params_key(st, threshold)
-        # the host's edges: a resumed snapshot's, then each save's new rows
-        host = ckpt_mod.load(checkpoint_path, key) if checkpoint_path else None
-        if host is None:
-            host = ckpt_mod.SweepCheckpoint(key, set(), np.full(L, -np.inf), [], [], [], [])
-        colmax = torch.full((Lp,), -np.inf, dtype=torch.float32, device=dev)
-        colmax[:L] = torch.from_numpy(host.colmax).to(device=dev, dtype=torch.float32)
-        todo = [i0 for i0 in range(0, L, st.tile) if i0 not in host.done_rows]
-        store = self.new_store()
-        every = max(1, checkpoint_every)
-        writer = bool(checkpoint_path) and is_writer()
-        saves = frozenset(range(every - 1, len(todo) - 1, every)) if writer else frozenset()
-        saved = 0  # store slots already on the host
-        ckpt_s = 0.0
+        with phases(timings) as mark:
+            with span("rows"):
+                key = ckpt_mod.params_key(st, threshold)
+                # the host's edges: a resumed snapshot's, then each save's new rows
+                host = ckpt_mod.load(checkpoint_path, key) if checkpoint_path else None
+                if host is None:
+                    host = ckpt_mod.SweepCheckpoint(key, set(), np.full(L, -np.inf),
+                                                    [], [], [], [])
+                colmax = torch.full((Lp,), -np.inf, dtype=torch.float32, device=dev)
+                colmax[:L] = torch.from_numpy(host.colmax).to(device=dev, dtype=torch.float32)
+                todo = [i0 for i0 in range(0, L, st.tile) if i0 not in host.done_rows]
+                store = self.new_store()
+                every = max(1, checkpoint_every)
+                writer = bool(checkpoint_path) and is_writer()
+                saves = (frozenset(range(every - 1, len(todo) - 1, every)) if writer
+                         else frozenset())
+                saved = 0  # store slots already on the host
 
-        def save(k):
-            nonlocal saved, ckpt_s
-            t_ck = time.perf_counter()
-            saved = self._edges_to_host(store, saved, todo, host)
-            host.done_rows.update(todo[:k + 1])
-            host.colmax = colmax[:L].cpu().numpy().astype(np.float64)
-            ckpt_mod.save(checkpoint_path, host)
-            ckpt_s += time.perf_counter() - t_ck
+                def save(k):
+                    nonlocal saved
+                    with span("save"):
+                        saved = self._edges_to_host(store, saved, todo, host)
+                        host.done_rows.update(todo[:k + 1])
+                        host.colmax = colmax[:L].cpu().numpy().astype(np.float64)
+                        ckpt_mod.save(checkpoint_path, host)
 
-        rerun = self.sweep_rows(todo, threshold, colmax, store, progress, saves, save)
-        synchronize(dev)
-        t1 = time.perf_counter()
-        self._edges_to_host(store, saved, todo, host)
-        colmax_h = colmax[:L].cpu().numpy().astype(np.float64)
-        cat = ckpt_mod.concat
-        s_i, s_j = cat(host.ipos, np.int64), cat(host.jpos, np.int64)
-        s_m = cat(host.mi, np.float64)
-        s_w = None if st.wog_lazy else cat(host.mi_wog, np.float64)
-        t2 = time.perf_counter()
-        if st.wog_lazy:
-            # snapshot and fresh rows alike hold mi placeholders: resolve the
-            # candidates of the final colmax over the whole edge set
-            s_w = self._resolve_deferred_wog(s_m, s_i, s_j, colmax_h, timings)
-        if writer and os.path.exists(checkpoint_path):
-            os.unlink(checkpoint_path)  # run completed; stale resume data
+                rerun = self.sweep_rows(todo, threshold, colmax, store, progress, saves, save)
+                synchronize(dev)
+            with span("fetch"):
+                self._edges_to_host(store, saved, todo, host)
+                colmax_h = colmax[:L].cpu().numpy().astype(np.float64)
+                cat = ckpt_mod.concat
+                s_i, s_j = cat(host.ipos, np.int64), cat(host.jpos, np.int64)
+                s_m = cat(host.mi, np.float64)
+                s_w = None if st.wog_lazy else cat(host.mi_wog, np.float64)
+            with span("wog"):
+                if st.wog_lazy:
+                    # snapshot and fresh rows alike hold mi placeholders: resolve the
+                    # candidates of the final colmax over the whole edge set
+                    s_w = self._resolve_deferred_wog(s_m, s_i, s_j, colmax_h, timings)
+                if writer and os.path.exists(checkpoint_path):
+                    os.unlink(checkpoint_path)  # run completed; stale resume data
+        count("edges_stored", len(s_i))
         if timings is not None:
-            timings["compute_s"] = t1 - t0
-            timings["checkpoint_s"] = ckpt_s
-            timings["fetch_s"] = t2 - t1
-            timings["wog_s"] = time.perf_counter() - t2
-            timings["n_rows"] = len(todo)
-            timings["n_items"] = sum(len(self.row_windows(r)) for r in todo)
-            timings["rerun_rows"] = rerun
+            timings.update(compute_s=mark.seconds("rows"),
+                           checkpoint_s=mark.seconds("rows.save"),
+                           fetch_s=mark.seconds("fetch"), wog_s=mark.seconds("wog"),
+                           n_rows=len(todo),
+                           n_items=sum(len(self.row_windows(r)) for r in todo),
+                           rerun_rows=rerun)
             if st.onehot_codes:
                 timings["expand_s"] = self._expand_s.total()
         return EdgeSet(ipos=s_i, jpos=s_j, mi=s_m, mi_wog=s_w, colmax=colmax_h)
@@ -980,8 +993,9 @@ class MIEngine:
         """wog for the edges at or above the outlier threshold of the final
         colmax (the only wog values the output surface reads,
         SpydrPick.hpp:100-124); mi for every other edge (solver.py:1862).
-        ``timings`` receives wog_candidates and wog_pairs_s (the pairs
-        path's seconds; the rest of the resolve is host work)."""
+        ``timings`` receives wog_candidates and wog_pairs_s (the seconds of
+        the span pairs, the pairs path; the rest of the resolve is host
+        work)."""
         from spydrpick_torch.engine.outliers import outlier_thresholds
 
         s_w = s_m.copy()
@@ -995,10 +1009,11 @@ class MIEngine:
             # move by one f32 ulp with its place in a chunk (ops/pairs.py);
             # inside that range the order changes no bit
             cand = cand[np.lexsort((s_j[cand], s_i[cand]))]
-        t0 = time.perf_counter()
-        if cand.size:
-            s_w[cand] = self.pair_wog(s_i[cand], s_j[cand])
+        with phases(timings) as mark:
+            with span("pairs"):
+                if cand.size:
+                    s_w[cand] = self.pair_wog(s_i[cand], s_j[cand])
         if timings is not None:
             timings["wog_candidates"] = int(cand.size)
-            timings["wog_pairs_s"] = time.perf_counter() - t0
+            timings["wog_pairs_s"] = mark.seconds("pairs")
         return s_w

@@ -14,18 +14,21 @@ The draws overlap the device work: one worker thread makes them, in
 order, from the one generator, while the caller's thread launches each
 chunk of the pairs drawn so far (``MIEngine.pair_quantiles``).  The
 stream and its chunks are those of drawing every iteration first, so the
-threshold is the same bit for bit.  ``determine_mi_threshold(timings=)``
-says which of the two sets the stage's pace: draws_s (the worker's
-seconds in ``sample_pairs``, host clock) and device_s (the chunks' device
-work, ``MIEngine.pair_quantiles``).
+threshold is the same bit for bit.  Spans (``utils/profiling.py``):
+draw (the worker's seconds in ``sample_pairs``, one per iteration, on
+the thread "draws_0") and wait_draws (the caller's thread blocked on a
+draw, one per iteration).  ``determine_mi_threshold(timings=)`` says which
+of the two sets the stage's pace: draws_s (the draws' seconds) and
+device_s (the chunks' device work, ``MIEngine.pair_quantiles``).
 """
 
 from __future__ import annotations
 
-import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+
+from spydrpick_torch.utils.profiling import count, current_path, phases, span
 
 
 def determine_threshold_pairs(threshold_pairs: int, possible_pairs: int,
@@ -62,21 +65,34 @@ def sample_pairs(rng: np.random.Generator, n_pairs: int,
     return collected // n_loci, collected % n_loci
 
 
-def _timed_draw(rng, n_pairs: int, n_loci: int, spent: list):
-    t0 = time.perf_counter()
-    out = sample_pairs(rng, n_pairs, n_loci)
-    spent.append(time.perf_counter() - t0)
-    return out
-
-
 def determine_mi_threshold(engine, n_values: int, threshold_pairs: int = 0,
                            iterations: int = 10, seed: int = 42,
                            verbose_out=None, timings: dict | None = None) -> float:
     """Estimate the MI save threshold; ``engine`` is a
     spydrpick_torch.engine.solver.MIEngine.  ``timings`` receives draws_s
     (the draws' seconds on the worker thread), device_s (the pair
-    chunks' device seconds), pairs (drawn in all) and total_s."""
-    t_start = time.perf_counter()
+    chunks' device seconds), pairs (drawn in all) and total_s.  The counter
+    pairs_drawn counts the pairs drawn."""
+    with phases(timings) as mark:
+        thresholds, pairs_n, device_s = _tournament(engine, n_values, threshold_pairs,
+                                                    iterations, seed, verbose_out)
+    if timings is not None:
+        timings.update(draws_s=mark.seconds("draw"), device_s=device_s,
+                       pairs=pairs_n * iterations, total_s=mark.seconds())
+    if verbose_out is not None:
+        for it, t in enumerate(thresholds):
+            print(f"spydrpick-torch: {it + 1:2d}/{iterations} threshold "
+                  f"sample = {t:.6f}", file=verbose_out)
+    thresholds = np.asarray(thresholds)
+    n = len(thresholds)
+    median_idx = n // 2 - (0 if n % 2 else 1)  # lower median (SpydrPick.hpp:339)
+    return float(np.partition(thresholds, median_idx)[median_idx])
+
+
+def _tournament(engine, n_values: int, threshold_pairs: int, iterations: int, seed: int,
+                verbose_out) -> tuple[np.ndarray, int, float]:
+    """(each iteration's threshold, pairs per iteration, the chunks' device
+    seconds)."""
     n_loci = engine.L
     possible_pairs = n_loci * (n_loci - 1) // 2
     percentile = 1.0 - float(n_values) / possible_pairs
@@ -93,29 +109,31 @@ def determine_mi_threshold(engine, n_values: int, threshold_pairs: int = 0,
         print(f" ({pairs_n} pairs * {iterations} iterations)", file=verbose_out)
 
     rng = np.random.default_rng(seed)
-    spent: list[float] = []
+    parent = current_path()
+
+    def draw():
+        with span("draw", parent=parent):
+            out = sample_pairs(rng, pairs_n, n_loci)
+        count("pairs_drawn", pairs_n)
+        return out
+
+    def arrived(draws):
+        for d in draws:
+            with span("wait_draws"):
+                got = d.result()
+            yield got
+
     quantile_t: dict = {}
     # one worker: the iterations are drawn in order, as one stream
-    with ThreadPoolExecutor(max_workers=1) as pool:
-        draws = [pool.submit(_timed_draw, rng, pairs_n, n_loci, spent)
-                 for _ in range(iterations)]
+    with ThreadPoolExecutor(max_workers=1, thread_name_prefix="draws") as pool:
+        draws = [pool.submit(draw) for _ in range(iterations)]
         try:
-            thresholds = engine.pair_quantiles((d.result() for d in draws), iterations,
-                                               pairs_n, threshold_idx, timings=quantile_t)
+            thresholds = engine.pair_quantiles(arrived(draws), iterations, pairs_n,
+                                               threshold_idx, timings=quantile_t)
         finally:
             for d in draws:
                 d.cancel()
-    if timings is not None:
-        timings.update(draws_s=sum(spent), device_s=quantile_t["device_s"],
-                       pairs=pairs_n * iterations, total_s=time.perf_counter() - t_start)
-    if verbose_out is not None:
-        for it, t in enumerate(thresholds):
-            print(f"spydrpick-torch: {it + 1:2d}/{iterations} threshold "
-                  f"sample = {t:.6f}", file=verbose_out)
-    thresholds = np.asarray(thresholds)
-    n = len(thresholds)
-    median_idx = n // 2 - (0 if n % 2 else 1)  # lower median (SpydrPick.hpp:339)
-    return float(np.partition(thresholds, median_idx)[median_idx])
+    return thresholds, pairs_n, quantile_t["device_s"]
 
 
 def default_mi_values(n_loci: int, mi_values_flag: int) -> int:

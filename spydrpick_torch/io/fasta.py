@@ -81,7 +81,6 @@ def read_fasta(
     mappings: np.ndarray | None = None,
     genome_size: int | None = None,
     pinned: bool = False,
-    timings: dict | None = None,
 ) -> Alignment:
     """Parse a FASTA file into an :class:`Alignment`.
 
@@ -89,13 +88,13 @@ def read_fasta(
     (``--mappings-list``, reference README "Advanced usage").
     ``genome_size``: optional explicit genome size (``--genome-size``).
     ``pinned``: the native parser decodes into page-locked memory, so that
-    the codes go to a card without a staging copy.  ``timings`` receives
-    the native parser's read_s and decode_s (``fasta_native.parse``).
+    the codes go to a card without a staging copy.  The native parser
+    records its passes as spans (``fasta_native.parse``).
     """
     path = pathlib.Path(path)
     native = _native_parser()
     if native is not None:
-        codes, names = native(path, _pinned if pinned else None, timings)
+        codes, names = native(path, _pinned if pinned else None)
         names = [n if n else f"seq{k}" for k, n in enumerate(names)]
     else:
         codes, names = _numpy_parse(path)
@@ -124,12 +123,14 @@ def read_fasta(
     )
 
 
-def write_fasta(path: str | os.PathLike, alignment: Alignment, width: int = 60) -> None:
+def write_fasta(path: str | os.PathLike, alignment: Alignment, width: int = 60) -> int:
     """Write an alignment back to FASTA (apegrunt ``output_alignment``,
-    used for --output-alignment / outlier-node dumps, SpydrPick.cpp:173,501)."""
+    used for --output-alignment / outlier-node dumps, SpydrPick.cpp:173,501);
+    returns the bytes written."""
     with open(path, "wb") as f:
         for name, row in zip(alignment.sample_names, alignment.codes):
             f.write(b">" + name.encode() + b"\n")
             seq = decode_codes(row)
             for off in range(0, len(seq), width):
                 f.write(seq[off : off + width] + b"\n")
+        return f.tell()

@@ -21,8 +21,6 @@ reference (native formatter, Python fallback), kept with its signature.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
@@ -30,6 +28,7 @@ from spydrpick_torch.core.alignment import Alignment
 from spydrpick_torch.core.distance import genome_distance
 from spydrpick_torch.device import synchronize
 from spydrpick_torch.ops.format import couplings_columns, format_couplings_rows
+from spydrpick_torch.utils.profiling import count, phases, span
 
 ROW_CHUNK = 1 << 24  # rows formatted at a time: bounds the device scratch
 
@@ -47,6 +46,8 @@ def write_couplings(
     linear_genome: bool = False,
     use_native: bool = True,
 ) -> None:
+    """The couplings file's rows on the host; the counter
+    bytes_written.couplings counts the bytes written."""
     p1 = _translated(edges.ipos, alignment.translation, output_base)
     p2 = _translated(edges.jpos, alignment.translation, output_base)
     dist = genome_distance(p1, p2, alignment.n_original_positions, linear_genome)
@@ -73,6 +74,7 @@ def write_couplings(
                 f.buffer.write(data)
             else:
                 f.write(data.decode("ascii"))
+            count("bytes_written.couplings", len(data))
             return
     mi = edges.mi
     out = []
@@ -83,7 +85,9 @@ def write_couplings(
             for k in range(c0, hi)
         ))
         out.append("\n")
-    f.write("".join(out))
+    text = "".join(out)
+    f.write(text)
+    count("bytes_written.couplings", len(text))  # ASCII: one byte a character
 
 
 def write_couplings_rows(f, ipos: torch.Tensor, jpos: torch.Tensor, mi: torch.Tensor,
@@ -95,41 +99,41 @@ def write_couplings_rows(f, ipos: torch.Tensor, jpos: torch.Tensor, mi: torch.Te
     uint8.  Per chunk of rows, p1, p2 and dist are computed and the rows
     formatted on that device (``format_couplings_rows``); on a card the
     bytes cross once into a pinned host buffer, and the file's binary
-    buffer writes them with no further copy.  ``timings`` receives
-    format_s, copy_s and file_s, summed over the chunks."""
+    buffer writes them with no further copy.  Per chunk the spans format,
+    copy and file; ``timings`` receives their seconds summed over the
+    chunks (format_s, copy_s, file_s).  The counter bytes_written.couplings
+    counts the bytes handed to the file."""
     dev = mi.device
     out = f
     if hasattr(f, "buffer"):  # a text file: write its bytes underneath
         f.flush()
         out = f.buffer
     trans = torch.from_numpy(np.ascontiguousarray(alignment.translation, dtype=np.int64)).to(dev)
-    tm = {"format_s": 0.0, "copy_s": 0.0, "file_s": 0.0}
     host = None
-    for lo in range(0, len(mi), chunk):
-        hi = min(len(mi), lo + chunk)
-        t0 = time.perf_counter()
-        p1, p2, dist = couplings_columns(ipos[lo:hi], jpos[lo:hi], trans, output_base,
-                                         alignment.n_original_positions, linear_genome)
-        data = format_couplings_rows(p1, p2, dist, flags[lo:hi], mi[lo:hi])
-        del p1, p2, dist
-        synchronize(dev)
-        t1 = time.perf_counter()
-        if dev.type == "cuda":
-            if host is None or len(host) < len(data):
-                host = torch.empty(len(data), dtype=torch.uint8, pin_memory=True)
-            host[:len(data)].copy_(data, non_blocking=True)
-            synchronize(dev)
-            buf = host[:len(data)].numpy()
-        else:
-            buf = data.numpy()
-        del data
-        t2 = time.perf_counter()
-        out.write(memoryview(buf))
-        tm["format_s"] += t1 - t0
-        tm["copy_s"] += t2 - t1
-        tm["file_s"] += time.perf_counter() - t2
+    with phases(timings) as mark:
+        for lo in range(0, len(mi), chunk):
+            hi = min(len(mi), lo + chunk)
+            with span("format"):
+                p1, p2, dist = couplings_columns(ipos[lo:hi], jpos[lo:hi], trans, output_base,
+                                                 alignment.n_original_positions, linear_genome)
+                data = format_couplings_rows(p1, p2, dist, flags[lo:hi], mi[lo:hi])
+                del p1, p2, dist
+                synchronize(dev)
+            with span("copy"):
+                if dev.type == "cuda":
+                    if host is None or len(host) < len(data):
+                        host = torch.empty(len(data), dtype=torch.uint8, pin_memory=True)
+                    host[:len(data)].copy_(data, non_blocking=True)
+                    synchronize(dev)
+                    buf = host[:len(data)].numpy()
+                else:
+                    buf = data.numpy()
+                del data
+            with span("file"):
+                out.write(memoryview(buf))
+            count("bytes_written.couplings", len(buf))
     if timings is not None:
-        timings.update(tm)
+        timings.update({f"{k}_s": mark.seconds(k) for k in ("format", "copy", "file")})
 
 
 def write_outliers(
@@ -143,11 +147,12 @@ def write_outliers(
     output_base: int = 1,
     linear_genome: bool = False,
 ) -> int:
-    """Returns the number of rows written."""
+    """Returns the number of rows written; the counter
+    bytes_written.outliers counts the bytes written."""
     p1 = _translated(edges.ipos, alignment.translation, output_base)
     p2 = _translated(edges.jpos, alignment.translation, output_base)
     dist = genome_distance(p1, p2, alignment.n_original_positions, linear_genome)
-    n = 0
+    n = n_bytes = 0
     for a, b, d, fl, w, wog in zip(p1, p2, dist, flags, edges.mi, edges.mi_wog):
         if w < outlier_threshold:
             break  # list is descending; reference breaks here (SpydrPick.hpp:100-103)
@@ -155,8 +160,11 @@ def write_outliers(
             continue
         gap_effect = (1.0 - wog / w) * 100.0 if w != 0 else 0.0
         extreme = int(w > extreme_outlier_threshold)
-        f.write(f"{a} {b} {d} {int(fl)} {w:.6f} {wog:.6f} {gap_effect:.1f} {extreme}\n")
+        row = f"{a} {b} {d} {int(fl)} {w:.6f} {wog:.6f} {gap_effect:.1f} {extreme}\n"
+        f.write(row)
         n += 1
+        n_bytes += len(row)  # ASCII: one byte a character
+    count("bytes_written.outliers", n_bytes)
     return n
 
 

@@ -5,10 +5,12 @@ build/native/ (``spydrpick_torch.native.build_library``)."""
 from __future__ import annotations
 
 import ctypes
+import os
 
 import numpy as np
 
 from spydrpick_torch.native import build_library
+from spydrpick_torch.utils.profiling import count, span
 
 _lib = None
 
@@ -37,25 +39,22 @@ def _load() -> ctypes.CDLL:
     return lib
 
 
-def parse(path: str, alloc=None, timings: dict | None = None
-          ) -> tuple[np.ndarray, list[str]]:
+def parse(path: str, alloc=None) -> tuple[np.ndarray, list[str]]:
     """(codes (S, L) uint8, sample names). Raises on malformed input.
     ``alloc(shape)`` gives the C-contiguous uint8 array the codes are
-    decoded into (a pinned buffer, say; by default ``np.empty``).  ``timings`` receives read_s (the first pass: the
-    file mapped, its bytes read and its records indexed) and decode_s (the
-    second: the codes decoded and the names copied)."""
-    import time
-
+    decoded into (a pinned buffer, say; by default ``np.empty``).  Spans
+    (``utils/profiling.py``): read (the first pass: the file mapped, its
+    bytes read and its records indexed), alloc (the codes' array) and
+    decode (the second pass: the codes decoded and the names copied); the
+    counter fasta_bytes counts the file's bytes."""
     lib = _load()
-    t0 = time.perf_counter()
-    n = ctypes.c_int64()
-    w = ctypes.c_int64()
-    rc = lib.spydrpick_fasta_index(str(path).encode(), ctypes.byref(n), ctypes.byref(w))
+    with span("read"):
+        n = ctypes.c_int64()
+        w = ctypes.c_int64()
+        rc = lib.spydrpick_fasta_index(str(path).encode(), ctypes.byref(n), ctypes.byref(w))
     if rc == -1:
         # the native open_map rejects missing AND zero-length files with
         # the same code; report the empty case like the numpy parser does
-        import os
-
         if os.path.exists(path) and os.path.getsize(path) == 0:
             raise ValueError(f"{path}: empty FASTA file")
         raise FileNotFoundError(path)
@@ -63,21 +62,21 @@ def parse(path: str, alloc=None, timings: dict | None = None
         raise ValueError(f"{path}: malformed FASTA")
     if rc == -3:
         raise ValueError(f"{path}: unaligned sequences (differing widths)")
+    count("fasta_bytes", os.path.getsize(path))
     S, L = n.value, w.value
-    t1 = time.perf_counter()
-    codes = np.empty((S, L), dtype=np.uint8) if alloc is None else alloc((S, L))
+    with span("alloc"):
+        codes = np.empty((S, L), dtype=np.uint8) if alloc is None else alloc((S, L))
     if codes.dtype != np.uint8 or codes.shape != (S, L) or not codes.flags.c_contiguous:
         raise ValueError(f"alloc gave a {codes.dtype} array of shape {codes.shape}")
-    namebuf_cap = 1 << 22
-    namebuf = ctypes.create_string_buffer(namebuf_cap)
-    rc = lib.spydrpick_fasta_parse(
-        str(path).encode(),
-        codes.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-        ctypes.c_int64(S), ctypes.c_int64(L), namebuf, ctypes.c_int64(namebuf_cap),
-    )
-    if rc != 0:
-        raise ValueError(f"{path}: FASTA parse failed (code {rc})")
-    if timings is not None:
-        timings.update(read_s=t1 - t0, decode_s=time.perf_counter() - t1)
-    names = namebuf.raw.split(b"\0")[:S]
+    with span("decode"):
+        namebuf_cap = 1 << 22
+        namebuf = ctypes.create_string_buffer(namebuf_cap)
+        rc = lib.spydrpick_fasta_parse(
+            str(path).encode(),
+            codes.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            ctypes.c_int64(S), ctypes.c_int64(L), namebuf, ctypes.c_int64(namebuf_cap),
+        )
+        if rc != 0:
+            raise ValueError(f"{path}: FASTA parse failed (code {rc})")
+        names = namebuf.raw.split(b"\0")[:S]
     return codes, [x.decode("utf-8", errors="replace") for x in names]

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from spydrpick_torch.ops import cuda_build
+from spydrpick_torch.utils.profiling import count
 
 _KEY_BITS = 0x7FFFFFFF
 
@@ -74,7 +75,9 @@ class EdgeStore:
         return (self.ipos, self.jpos, self.mi) + (() if self.wog is None else (self.wog,))
 
     def grow(self, capacity: int) -> None:
-        """Reallocate to ``capacity`` slots, keeping slots [0, checked)."""
+        """Reallocate to ``capacity`` slots, keeping slots [0, checked);
+        counted by the counter store_grows."""
+        count("store_grows")
         n = self.checked
         for name in ("ipos", "jpos", "mi", "wog"):
             old = getattr(self, name)
@@ -254,6 +257,3 @@ def route_rows(mask: torch.Tensor, mi: torch.Tensor,
         raise ValueError(f"route_rows: unsupported device {mask.device} (a plain CPU "
                          "function; the sweep's kernel is row_select)")
     return route_rows_plain(mask, mi, wog)
-
-
-route_rows.launches = 0  # no kernel serves route_rows: stays 0

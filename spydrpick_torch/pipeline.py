@@ -23,10 +23,10 @@ tournament and the lazy wo-gaps resolve then run on the sample shards.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import sys
-import time
 
 import numpy as np
 import torch
@@ -54,8 +54,22 @@ from spydrpick_torch.engine.outliers import outlier_thresholds
 from spydrpick_torch.engine.solver import DeviceEdges, EdgeSet, EngineConfig, MIEngine
 from spydrpick_torch.engine.threshold import default_mi_values, determine_mi_threshold
 from spydrpick_torch.ops.aracne import aracne_flags
+from spydrpick_torch.ops.columns import column_state_counts
+from spydrpick_torch.ops.compact import row_select
+from spydrpick_torch.ops.format import format_couplings_rows
+from spydrpick_torch.ops.mi_kernels import crosstab_tile, mi_epilogue, mi_tile_dual, mi_tile_single
+from spydrpick_torch.ops.pairs import pairs_xtab
 from spydrpick_torch.parallel.distributed import is_writer, world_size
-from spydrpick_torch.utils.stopwatch import Stopwatch
+from spydrpick_torch.utils.profiling import (
+    SCAN,
+    count,
+    phases,
+    profile_trace,
+    recording,
+    seconds,
+    span,
+)
+from spydrpick_torch.utils.stopwatch import time_string
 from spydrpick_torch.utils.uniquefile import unique_path
 
 
@@ -100,7 +114,7 @@ class PipelineOptions:
     onehot_storage: str = "auto"        # "auto" | "dense" | "codes" (EngineConfig)
     row_window: int = 0                 # j-window width: 0 auto, 1 full-width rows
     output_dir: str = "."
-    profile_dir: str | None = None      # torch.profiler trace of the sweep
+    profile_dir: str | None = None      # torch.profiler trace of the whole scan
     checkpoint: str | None = None       # sweep checkpoint file (resume support)
     checkpoint_every: int = 16
     sharded: bool = False               # sweep over every process of the run
@@ -132,86 +146,96 @@ def load_and_preprocess(opts: PipelineOptions, timings: dict | None = None) -> A
     filter's subsets, the filter's counts (``ops/columns.py``) and the
     computed weights read that copy, and so does the engine
     (``build_device_data``).  On the CPU the host codes are the only
-    codes.  ``timings`` receives each part's wall seconds: parse_s (the
-    FASTA and the mappings list; of it, the native parser's read_s and
-    decode_s), upload_s (the codes' copy to the card, 0 on the CPU),
-    lists_s (include, exclude and sample lists, and their subsets),
-    filter_s (the counts, the filter rules and their subset), weights_s
-    and outputs_s (the optional side files)."""
+    codes.  Each part is a span; ``timings`` receives their seconds:
+    parse_s (the FASTA and the mappings list; of it, the native parser's
+    read_s and decode_s, without the codes' allocation between them),
+    upload_s (the codes' copy to the card, 0 on the CPU), lists_s (include,
+    exclude and sample lists, and their subsets), filter_s (the counts, the
+    filter rules and their subset), weights_s and outputs_s (the optional
+    side files).  The counters columns_in and columns_kept count the
+    filter's columns."""
     device = default_device()
-    tm = dict.fromkeys(("parse_s", "read_s", "decode_s", "upload_s", "lists_s", "filter_s",
-                        "weights_s", "outputs_s"), 0.0)
-    clock = [time.perf_counter()]
+    with phases(timings) as mark:
+        with span("parse"):
+            mappings = (
+                parse_loci_list(opts.mappings_list, opts.input_indexing_base)
+                if opts.mappings_list
+                else None
+            )
+            alignment = read_fasta(opts.alignmentfile, mappings=mappings,
+                                   genome_size=opts.genome_size, pinned=device.type == "cuda")
+            _log(opts, f'alignment "{alignment.id_string}": '
+                 f"{alignment.n_samples} samples x {alignment.n_loci} loci")
+        if device.type == "cuda":
+            with span("upload"):
+                alignment.device_codes = torch.from_numpy(alignment.codes).to(
+                    device, non_blocking=True)
+                synchronize(device)
 
-    def lap(name: str) -> None:
-        now = time.perf_counter()
-        tm[name] += now - clock[0]
-        clock[0] = now
+        with span("outputs"):
+            if opts.output_alignment and is_writer():
+                write_fasta(unique_path(f"{opts.output_dir}/{alignment.id_string}.input.fasta"),
+                            alignment)
 
-    mappings = (
-        parse_loci_list(opts.mappings_list, opts.input_indexing_base)
-        if opts.mappings_list
-        else None
-    )
-    alignment = read_fasta(opts.alignmentfile, mappings=mappings, genome_size=opts.genome_size,
-                           pinned=device.type == "cuda", timings=tm)
-    _log(opts, f'alignment "{alignment.id_string}": '
-         f"{alignment.n_samples} samples x {alignment.n_loci} loci")
-    lap("parse_s")
-    if device.type == "cuda":
-        alignment.device_codes = torch.from_numpy(alignment.codes).to(device, non_blocking=True)
-        synchronize(device)
-        lap("upload_s")
+        with span("lists"):
+            if opts.include_list:
+                incl = set(parse_loci_list(opts.include_list, opts.input_indexing_base).tolist())
+                keep = np.array(
+                    [k for k, t in enumerate(alignment.translation) if t in incl],
+                    dtype=np.int64)
+                alignment = alignment.subset(keep)
+                _log(opts, f"include list -> {alignment.n_loci} loci")
+            if opts.exclude_list:
+                excl = set(parse_loci_list(opts.exclude_list, opts.input_indexing_base).tolist())
+                keep = np.array(
+                    [k for k, t in enumerate(alignment.translation) if t not in excl],
+                    dtype=np.int64)
+                alignment = alignment.subset(keep)
+                _log(opts, f"exclude list -> {alignment.n_loci} loci")
 
-    if opts.output_alignment and is_writer():
-        write_fasta(unique_path(f"{opts.output_dir}/{alignment.id_string}.input.fasta"),
-                    alignment)
-    lap("outputs_s")
+        with span("filter"):
+            count("columns_in", alignment.n_loci)
+            if not opts.no_filter_alignment:
+                keep = filter_list(alignment, FilterParams(opts.maf_threshold,
+                                                           opts.gap_threshold))
+                _log(opts, f"apply filter rules.. {len(keep)} positions fulfill filter criteria")
+                if len(keep) == 0:
+                    _log(opts, "nothing to do")
+                    raise SystemExit(0)
+                if len(keep) != alignment.n_loci:
+                    alignment = alignment.subset(keep)
+                if opts.verbose:
+                    print(alignment.statistics_string(), flush=True)
+            count("columns_kept", alignment.n_loci)
 
-    if opts.include_list:
-        incl = set(parse_loci_list(opts.include_list, opts.input_indexing_base).tolist())
-        keep = np.array(
-            [k for k, t in enumerate(alignment.translation) if t in incl], dtype=np.int64
-        )
-        alignment = alignment.subset(keep)
-        _log(opts, f"include list -> {alignment.n_loci} loci")
-    if opts.exclude_list:
-        excl = set(parse_loci_list(opts.exclude_list, opts.input_indexing_base).tolist())
-        keep = np.array(
-            [k for k, t in enumerate(alignment.translation) if t not in excl], dtype=np.int64
-        )
-        alignment = alignment.subset(keep)
-        _log(opts, f"exclude list -> {alignment.n_loci} loci")
-    lap("lists_s")
+        with span("lists"):
+            if opts.sample_list:
+                alignment = alignment.subsample(
+                    parse_loci_list(opts.sample_list, opts.input_indexing_base))
+                _log(opts, f"sample list -> {alignment.n_samples} samples")
 
-    if not opts.no_filter_alignment:
-        keep = filter_list(alignment, FilterParams(opts.maf_threshold, opts.gap_threshold))
-        _log(opts, f"apply filter rules.. {len(keep)} positions fulfill filter criteria")
-        if len(keep) == 0:
-            _log(opts, "nothing to do")
-            raise SystemExit(0)
-        if len(keep) != alignment.n_loci:
-            alignment = alignment.subset(keep)
-        if opts.verbose:
-            print(alignment.statistics_string(), flush=True)
-    lap("filter_s")
+        with span("weights"):
+            alignment = cache_sample_weights(
+                alignment,
+                weights_file=opts.sample_weights,
+                no_reweighting=opts.no_sample_reweighting,
+                threshold=opts.sample_reweighting_threshold,
+                device=device,
+            )
+            _log(opts, f"effective sample size = {alignment.effective_size:.2f}")
 
-    if opts.sample_list:
-        alignment = alignment.subsample(
-            parse_loci_list(opts.sample_list, opts.input_indexing_base))
-        _log(opts, f"sample list -> {alignment.n_samples} samples")
-    lap("lists_s")
+        with span("outputs"):
+            _side_files(opts, alignment, device)
+    if timings is not None:
+        timings.update(parse_s=mark.seconds("parse"), read_s=mark.seconds("parse.read"),
+                       decode_s=mark.seconds("parse.decode"),
+                       **{f"{k}_s": mark.seconds(k)
+                          for k in ("upload", "lists", "filter", "weights", "outputs")})
+    return alignment
 
-    alignment = cache_sample_weights(
-        alignment,
-        weights_file=opts.sample_weights,
-        no_reweighting=opts.no_sample_reweighting,
-        threshold=opts.sample_reweighting_threshold,
-        device=device,
-    )
-    _log(opts, f"effective sample size = {alignment.effective_size:.2f}")
-    lap("weights_s")
 
+def _side_files(opts: PipelineOptions, alignment: Alignment, device) -> None:
+    """The optional files of the weighted, filtered alignment."""
     if opts.output_sample_weights and is_writer():
         with open(unique_path(f"{opts.output_dir}/{alignment.id_string}.weights"), "w") as f:
             write_sample_weights(f, alignment)
@@ -228,10 +252,6 @@ def load_and_preprocess(opts: PipelineOptions, timings: dict | None = None) -> A
             unique_path(f"{opts.output_dir}/{alignment.id_string}.distance_matrix"), "w"
         ) as f:
             write_distance_matrix(f, hamming_distance_matrix(alignment, device=device))
-    lap("outputs_s")
-    if timings is not None:
-        timings.update(tm)
-    return alignment
 
 
 def engine_config(opts: PipelineOptions) -> EngineConfig:
@@ -252,89 +272,127 @@ def engine_config(opts: PipelineOptions) -> EngineConfig:
     )
 
 
+# the stage keys of run_pipeline's timings and the spans they are views of
+STAGES = (("preprocess_s", "lead_in"), ("engine_build_s", "engine_build"),
+          ("threshold_s", "tournament"), ("sweep_s", "sweep"), ("sort_s", "sort"),
+          ("aracne_s", "aracne"), ("write_s", "write"), ("total_s", SCAN))
+
+
 def run_pipeline(opts: PipelineOptions, write_outputs: bool = True,
                  timings: dict | None = None) -> PipelineResult:
-    """``timings`` (optional dict) receives per-stage wall seconds:
-    preprocess_s (preprocess_phases: ``load_and_preprocess``'s parts),
-    engine_build_s, threshold_s (with the automatic threshold,
-    threshold_phases: ``determine_mi_threshold``'s draws_s, device_s,
-    pairs and total_s), sweep_s (with the engine's phases under
+    """One scan.  With ``timings`` (a dict), or with ``opts.verbose`` or
+    ``opts.profile_dir``, the scan is recorded (``utils/profiling.py``):
+    ``timings`` receives the spans, the counters and the scan's number
+    ("spans", "counters", "scan"), and per stage the seconds of its span:
+    preprocess_s (span lead_in; preprocess_phases: ``load_and_preprocess``'s
+    parts), engine_build_s, threshold_s (span tournament; with the automatic
+    threshold, threshold_phases: ``determine_mi_threshold``'s draws_s,
+    device_s, pairs and total_s), sweep_s (with the engine's phases under
     sweep_phases), sort_s, aracne_s (aracne_phases: on a card
     ``aracne_flags``'s csr_s, scan_s and total_s, on the CPU
     ``run_aracne``'s native_s), write_s (write_phases: each file's seconds,
     and on a card the couplings file's format_s, copy_s and file_s) and
-    total_s.
-    Each stage boundary waits for the device first, so a stage's time
-    includes its device work."""
+    total_s (span scan, the whole call).  Each stage's span ends after a
+    wait for the device, so a stage's time includes its device work.  The
+    counters launches.<wrapper> hold the scan's kernel launches of each
+    wrapper (its ``launches`` attribute, read at the scan's start and end).
+    ``opts.profile_dir`` traces the whole call (``profile_trace``).
+    Without any of the three nothing is recorded."""
+    record = timings
+    if record is None and (opts.verbose or opts.profile_dir):
+        record = {}
+    with profile_trace(opts.profile_dir if is_writer() else None, record), recording(record):
+        before = _launches()
+        result = _scan(opts, write_outputs, record)
+        for name, n in _launches().items():
+            count(f"launches.{name}", n - before[name])
+    if record is not None:
+        for key, path in STAGES:
+            if any(sp["path"] == path for sp in record["spans"]):
+                record[key] = seconds(record["spans"], path)
+        _log(opts, "counters: " + ", ".join(f"{k} {v}" for k, v in record["counters"].items()))
+        _log(opts, f"analysis completed in {time_string(record['total_s'])}")
+    return result
+
+
+def _launches() -> dict:
+    """Each kernel wrapper's ``launches`` count, by the wrapper's name."""
+    return {fn.__name__: fn.launches
+            for fn in (mi_tile_single, mi_tile_dual, crosstab_tile, mi_epilogue, row_select,
+                       aracne_flags, format_couplings_rows, column_state_counts, pairs_xtab)}
+
+
+def _scan(opts: PipelineOptions, write_outputs: bool, tm: dict | None) -> PipelineResult:
+    """``run_pipeline``'s stages, each in its span; ``tm`` (None when the
+    scan is not recorded) receives the stages' phases."""
     device = default_device()
     if is_writer():
         os.makedirs(opts.output_dir, exist_ok=True)
-    tm = timings if timings is not None else {}
 
-    def _stage(name: str, t0: float) -> float:
-        synchronize(device)
-        t1 = time.perf_counter()
-        tm[name] = t1 - t0
-        _log(opts, f"stage time: {name} {tm[name]:.2f}s")
-        return t1
+    def part(key: str) -> dict | None:
+        return None if tm is None else tm.setdefault(key, {})
 
-    timer = Stopwatch(sys.stdout if opts.verbose else None).start()
-    t_st = time.perf_counter()
-    tm["preprocess_phases"] = {}
-    alignment = load_and_preprocess(opts, tm["preprocess_phases"])
-    t_st = _stage("preprocess_s", t_st)
-    _log(opts, "preprocess phases: " + ", ".join(
-        f"{k} {v:.4f}s" for k, v in tm["preprocess_phases"].items()))
+    @contextlib.contextmanager
+    def stage(name: str):
+        with span(name) as sp:
+            yield
+            synchronize(device)
+        if sp is not None:
+            _log(opts, f"stage time: {name} {sp.seconds:.2f}s")
+
+    with stage("lead_in"):
+        alignment = load_and_preprocess(opts, part("preprocess_phases"))
+    if tm is not None:
+        _log(opts, "preprocess phases: " + ", ".join(
+            f"{k} {v:.4f}s" for k, v in tm["preprocess_phases"].items()))
 
     # sharded runs build the mesh before the tournament, so that with
     # sample shards the tournament runs on them too (pipeline.py:248-269)
-    mesh = None
-    if opts.sharded and world_size() > 1:
-        from spydrpick_torch.parallel.mesh import ShardedEngineView, make_mesh
+    with stage("engine_build"):
+        mesh = None
+        if opts.sharded and world_size() > 1:
+            from spydrpick_torch.parallel.mesh import ShardedEngineView, make_mesh
 
-        mesh = make_mesh(opts.sample_shards)
-    elif opts.sharded:
-        _log(opts, "only one device visible; using single-device sweep")
-    if mesh is not None and opts.sample_shards > 1:
-        engine = ShardedEngineView(alignment, engine_config(opts), mesh, device)
-    else:
-        engine = MIEngine(alignment, engine_config(opts), device=device)
-    st = engine.statics
-    _log(opts, f"engine on {device}: int8 mode {st.int8_mode}, "
-         f"{engine.S} sample rows x {engine.Lp} columns, "
-         f"{'codes' if st.onehot_codes else 'dense'} one-hot, "
-         + (f"j-windows of {st.row_window} columns" if st.row_window else "full-width rows")
-         + (f", mesh rows x samples = {tuple(mesh.shape)}" if mesh is not None else ""))
-    t_st = _stage("engine_build_s", t_st)
+            mesh = make_mesh(opts.sample_shards)
+        elif opts.sharded:
+            _log(opts, "only one device visible; using single-device sweep")
+        if mesh is not None and opts.sample_shards > 1:
+            engine = ShardedEngineView(alignment, engine_config(opts), mesh, device)
+        else:
+            engine = MIEngine(alignment, engine_config(opts), device=device)
+        st = engine.statics
+        _log(opts, f"engine on {device}: int8 mode {st.int8_mode}, "
+             f"{engine.S} sample rows x {engine.Lp} columns, "
+             f"{'codes' if st.onehot_codes else 'dense'} one-hot, "
+             + (f"j-windows of {st.row_window} columns" if st.row_window else "full-width rows")
+             + (f", mesh rows x samples = {tuple(mesh.shape)}" if mesh is not None else ""))
 
-    mi_threshold = opts.mi_threshold
-    if mi_threshold < 0:
-        top_pairs = default_mi_values(alignment.n_loci, opts.mi_values)
-        _log(opts, f"determine MI threshold for saving approx. {top_pairs} top pairs")
-        tm["threshold_phases"] = {}
-        mi_threshold = determine_mi_threshold(
-            engine, top_pairs,
-            threshold_pairs=opts.mi_threshold_pairs,
-            iterations=opts.mi_threshold_iterations,
-            seed=opts.seed,
-            verbose_out=sys.stdout if opts.verbose else None,
-            timings=tm["threshold_phases"],
-        )
-        _log(opts, f"MI save threshold = {mi_threshold:.6f}")
-        _log(opts, "tournament phases: " + ", ".join(
-            f"{k} {v:.4f}s" if k.endswith("_s") else f"{k} {v}"
-            for k, v in tm["threshold_phases"].items()))
-    else:
-        _log(opts, f"user-defined MI save threshold = {mi_threshold:.6f}")
-    t_st = _stage("threshold_s", t_st)
+    with stage("tournament"):
+        mi_threshold = opts.mi_threshold
+        if mi_threshold < 0:
+            top_pairs = default_mi_values(alignment.n_loci, opts.mi_values)
+            _log(opts, f"determine MI threshold for saving approx. {top_pairs} top pairs")
+            mi_threshold = determine_mi_threshold(
+                engine, top_pairs,
+                threshold_pairs=opts.mi_threshold_pairs,
+                iterations=opts.mi_threshold_iterations,
+                seed=opts.seed,
+                verbose_out=sys.stdout if opts.verbose else None,
+                timings=part("threshold_phases"),
+            )
+            _log(opts, f"MI save threshold = {mi_threshold:.6f}")
+            if tm is not None:
+                _log(opts, "tournament phases: " + ", ".join(
+                    f"{k} {v:.4f}s" if k.endswith("_s") else f"{k} {v}"
+                    for k, v in tm["threshold_phases"].items()))
+        else:
+            _log(opts, f"user-defined MI save threshold = {mi_threshold:.6f}")
 
     def progress(lo, hi, n_new, dt):
         _log(opts, f"  {lo + 1}-{hi} / {alignment.n_loci} ({n_new} new edges) time={dt:.3f}s")
 
-    from spydrpick_torch.utils.profiling import profile_trace
-
-    sweep_phases: dict = {}
-    with profile_trace(opts.profile_dir if is_writer() else None):
+    sweep_phases = part("sweep_phases")
+    with stage("sweep"):
         if mesh is not None:
             from spydrpick_torch.parallel.mesh import sharded_sweep
 
@@ -347,9 +405,7 @@ def run_pipeline(opts: PipelineOptions, write_outputs: bool = True,
             edges = engine.sweep(mi_threshold, progress=progress if opts.verbose else None,
                                  checkpoint_path=opts.checkpoint,
                                  checkpoint_every=opts.checkpoint_every, timings=sweep_phases)
-    tm["sweep_phases"] = sweep_phases
-    t_st = _stage("sweep_s", t_st)
-    if opts.checkpoint:
+    if opts.checkpoint and sweep_phases is not None:
         _log(opts, f"checkpoint saves: {sweep_phases['checkpoint_s']:.2f}s")
     _log(opts, f"{edges.n_edges} edges stored")
 
@@ -360,30 +416,30 @@ def run_pipeline(opts: PipelineOptions, write_outputs: bool = True,
     # sort_desc's order from one device sort; on a card the sorted columns
     # stay there for ARACNE and the couplings file, while the CPU runs the
     # native host copies (the plain versions are far slower there)
-    edges, dev_edges = edges.sorted_on(device)
-    if not dev_edges.mi.is_cuda:
-        dev_edges = None
-    t_st = _stage("sort_s", t_st)
+    with stage("sort"):
+        edges, dev_edges = edges.sorted_on(device)
+        if not dev_edges.mi.is_cuda:
+            dev_edges = None
 
-    flags, dev_flags = np.zeros(edges.n_edges, dtype=np.uint8), None
-    if not opts.no_aracne and edges.n_edges:
-        _log(opts, "run ARACNE")
-        aracne_t: dict = {}
-        if dev_edges is not None:
-            dev_flags = aracne_flags(dev_edges.ipos, dev_edges.jpos, dev_edges.mi,
-                                     opts.aracne_edge_threshold, timings=aracne_t)
-            flags = to_host([dev_flags])[0]
-            _log(opts, f"ARACNE: {edges.n_edges} edges / {aracne_t['nodes']} nodes, longest "
-                 f"row {aracne_t['max_degree']}; csr {aracne_t['csr_s']:.3f}s, scan "
-                 f"{aracne_t['scan_s']:.3f}s on {device}")
-        else:
-            flags = run_aracne(edges.ipos, edges.jpos, edges.mi, opts.aracne_edge_threshold,
-                               timings=aracne_t,
-                               verbose_out=sys.stdout if opts.verbose else None)
-        tm["aracne_phases"] = aracne_t
-    elif dev_edges is not None:
-        dev_flags = torch.zeros(edges.n_edges, dtype=torch.uint8, device=device)
-    t_st = _stage("aracne_s", t_st)
+    with stage("aracne"):
+        flags, dev_flags = np.zeros(edges.n_edges, dtype=np.uint8), None
+        if not opts.no_aracne and edges.n_edges:
+            _log(opts, "run ARACNE")
+            aracne_t = part("aracne_phases")
+            if dev_edges is not None:
+                dev_flags = aracne_flags(dev_edges.ipos, dev_edges.jpos, dev_edges.mi,
+                                         opts.aracne_edge_threshold, timings=aracne_t)
+                flags = to_host([dev_flags])[0]
+                if aracne_t is not None:
+                    _log(opts, f"ARACNE: {edges.n_edges} edges / {aracne_t['nodes']} nodes, "
+                         f"longest row {aracne_t['max_degree']}; csr {aracne_t['csr_s']:.3f}s, "
+                         f"scan {aracne_t['scan_s']:.3f}s on {device}")
+            else:
+                flags = run_aracne(edges.ipos, edges.jpos, edges.mi, opts.aracne_edge_threshold,
+                                   timings=aracne_t,
+                                   verbose_out=sys.stdout if opts.verbose else None)
+        elif dev_edges is not None:
+            dev_flags = torch.zeros(edges.n_edges, dtype=torch.uint8, device=device)
 
     result = PipelineResult(
         alignment=alignment,
@@ -394,56 +450,59 @@ def run_pipeline(opts: PipelineOptions, write_outputs: bool = True,
         extreme_outlier_threshold=extreme_thr,
     )
     if write_outputs and is_writer():
-        tm["write_phases"] = _write_outputs(opts, result, dev_edges, dev_flags)
-        _stage("write_s", t_st)
-    del dev_edges, dev_flags
-
-    tm["total_s"] = timer.stop()
-    _log(opts, f"analysis completed in {timer}")
+        with stage("write"):
+            _write_outputs(opts, result, dev_edges, dev_flags, part("write_phases"))
     return result
 
 
 def _write_outputs(opts: PipelineOptions, res: PipelineResult, dev_edges: DeviceEdges | None,
-                   dev_flags) -> dict:
-    """Couplings + outliers + outlier-node FASTA (SpydrPick.cpp:423-510);
-    returns each one's seconds (couplings_s, outliers_s, nodes_s).  With
-    ``dev_edges`` (a card) the couplings rows are formatted there
-    (``write_couplings_rows``, whose format_s, copy_s and file_s join
-    them); else, and for the other files, on the host."""
-    t0 = time.perf_counter()
-    phases: dict = {}
+                   dev_flags, timings: dict | None = None) -> None:
+    """Couplings + outliers + outlier-node FASTA (SpydrPick.cpp:423-510),
+    each in its span; ``timings`` receives their seconds (couplings_s,
+    outliers_s, nodes_s).  With ``dev_edges`` (a card) the couplings rows
+    are formatted there (``write_couplings_rows``, whose format_s, copy_s
+    and file_s join them); else, and for the other files, on the host.
+    The counters bytes_written.couplings, .outliers and .nodes count the
+    bytes each writer handed its file."""
     al = res.alignment
     base = opts.output_indexing_base
     stem = f"{opts.output_dir}/{al.id_string}.{al.size_string()}.spydrpick_couplings"
+    couplings_t = None if timings is None or dev_edges is None else {}
+    with phases(timings) as mark:
+        with span("couplings"):
+            couplings_path = unique_path(f"{stem}.{base}-based.{res.edges.n_edges}edges")
+            if dev_edges is not None:
+                with open(couplings_path, "wb") as f:
+                    write_couplings_rows(f, dev_edges.ipos, dev_edges.jpos, dev_edges.mi,
+                                         dev_flags, al, base, opts.linear_genome,
+                                         timings=couplings_t)
+            else:
+                with open(couplings_path, "w") as f:
+                    write_couplings(f, res.edges, res.flags, al, base, opts.linear_genome)
+            res.couplings_path = str(couplings_path)
+            _log(opts, f'wrote network ({res.edges.n_edges} edges) to "{couplings_path}"')
 
-    couplings_path = unique_path(f"{stem}.{base}-based.{res.edges.n_edges}edges")
-    if dev_edges is not None:
-        with open(couplings_path, "wb") as f:
-            write_couplings_rows(f, dev_edges.ipos, dev_edges.jpos, dev_edges.mi, dev_flags,
-                                 al, base, opts.linear_genome, timings=phases)
-    else:
-        with open(couplings_path, "w") as f:
-            write_couplings(f, res.edges, res.flags, al, base, opts.linear_genome)
-    res.couplings_path = str(couplings_path)
-    _log(opts, f'wrote network ({res.edges.n_edges} edges) to "{couplings_path}"')
-    t1 = time.perf_counter()
+        with span("outliers"):
+            outliers_path = unique_path(f"{stem}.{base}-based.outliers")
+            with open(outliers_path, "w") as f:
+                n_rows = write_outliers(
+                    f, res.edges, res.flags, al,
+                    res.outlier_threshold, res.extreme_outlier_threshold,
+                    opts.ld_threshold, base, opts.linear_genome,
+                )
+            res.outliers_path = str(outliers_path)
+            _log(opts, f'wrote outlier network ({n_rows} rows) to "{outliers_path}"')
 
-    outliers_path = unique_path(f"{stem}.{base}-based.outliers")
-    with open(outliers_path, "w") as f:
-        n_rows = write_outliers(
-            f, res.edges, res.flags, al,
-            res.outlier_threshold, res.extreme_outlier_threshold,
-            opts.ld_threshold, base, opts.linear_genome,
-        )
-    res.outliers_path = str(outliers_path)
-    _log(opts, f'wrote outlier network ({n_rows} rows) to "{outliers_path}"')
-    t2 = time.perf_counter()
-
-    mask = res.edges.mi >= res.outlier_threshold
-    nodes = np.unique(np.concatenate([res.edges.ipos[mask], res.edges.jpos[mask]]))
-    _log(opts, f"extract nodes involved in outlier edges: found {len(nodes)} nodes")
-    if 0 < len(nodes) < al.n_loci:
-        write_fasta(unique_path(f"{opts.output_dir}/{al.id_string}.outlier_nodes.fasta"),
+        with span("nodes"):
+            mask = res.edges.mi >= res.outlier_threshold
+            nodes = np.unique(np.concatenate([res.edges.ipos[mask], res.edges.jpos[mask]]))
+            _log(opts, f"extract nodes involved in outlier edges: found {len(nodes)} nodes")
+            n_bytes = 0
+            if 0 < len(nodes) < al.n_loci:
+                n_bytes = write_fasta(
+                    unique_path(f"{opts.output_dir}/{al.id_string}.outlier_nodes.fasta"),
                     al.subset(nodes))
-    return {"couplings_s": t1 - t0, "outliers_s": t2 - t1, "nodes_s": time.perf_counter() - t2,
-            **phases}
+            count("bytes_written.nodes", n_bytes)
+    if timings is not None:
+        timings.update({f"{k}_s": mark.seconds(k) for k in ("couplings", "outliers", "nodes")},
+                       **(couplings_t or {}))

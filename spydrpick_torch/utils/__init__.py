@@ -1,2 +1,3 @@
-"""Host helpers of the port: the stopwatch and unique output paths (copies
-of ``spydrpick_tpu.utils``) and the torch.profiler trace reader."""
+"""Host helpers of the port: time strings and unique output paths (copies
+of ``spydrpick_tpu.utils``), and the spans, counters and profiler trace
+of ``profiling.py``."""

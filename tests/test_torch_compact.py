@@ -42,10 +42,8 @@ def test_plain_k2_matches_pallas_route(density, with_wog):
     r_mi, r_j, r_wog, counts = route_rows_pallas(
         jnp.asarray(mask), jnp.asarray(mi), None if wog is None else jnp.asarray(wog),
         interpret=True)
-    launches = route_rows.launches
     port = route_rows(torch.from_numpy(mask), torch.from_numpy(mi),
                       None if wog is None else torch.from_numpy(wog))
-    assert route_rows.launches == launches  # CPU tensors never launch the kernel
     assert (port[2] is None) == (wog is None)
     assert_prefixes_equal(port, np.asarray(counts), np.asarray(r_mi), np.asarray(r_j),
                           None if r_wog is None else np.asarray(r_wog))
