@@ -49,8 +49,10 @@ def _numpy_parse(path: pathlib.Path) -> tuple[np.ndarray, list[str]]:
     names: list[str] = []
     seqs: list[np.ndarray] = []
     # Split on '>' at RECORD STARTS only (line starts) — a literal '>'
-    # inside a header line must not split the record (the native parser,
-    # fasta.cpp index_records, has the same line-start rule)
+    # inside a header line must not split the record.  The native parser
+    # (fasta.cpp) differs: it starts a record at the first '>' of any
+    # line, so a '>' in the middle of a sequence line splits there, where
+    # this fallback decodes it as a gap
     body_all = raw.lstrip()
     if not body_all.startswith(b">"):
         raise ValueError(f"{path}: file does not start with a FASTA header ('>')")

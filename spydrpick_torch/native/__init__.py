@@ -1,7 +1,8 @@
-"""Native (C++) host kernels of the port: the mmap FASTA parser
-(fasta.cpp), the ARACNE owner-scan (aracne.cpp) and the couplings-row
-formatter (format.cpp), copies of ``spydrpick_tpu/native`` with their
-ctypes loaders.
+"""Native (C++) host kernels of the port, with their ctypes loaders: the
+ARACNE owner-scan (aracne.cpp) and the couplings-row formatter
+(format.cpp), copies of ``spydrpick_tpu/native``, and the mmap FASTA
+parser (fasta.cpp), which gives the results of the JAX package's parser
+from one parallel walk of the file.
 
 Each loader builds its library at first use with the reference's flags
 (``g++ -O3 -std=c++17 -fopenmp -shared -fPIC``) into ``build/native/`` of

@@ -337,6 +337,7 @@ def test_counters_match_the_results(scans):
         assert c["edges_stored"] == res.edges.n_edges > 0
         assert c["pairs_drawn"] == tm["threshold_phases"]["pairs"]
         assert c["fasta_bytes"] == os.path.getsize(fasta)
+        assert c["fasta_slow_records"] == 0  # lines of 60 codes, no interior whitespace
         assert c["columns_in"] >= c["columns_kept"] == res.alignment.n_loci
         assert c["sweep_items"] == tm["sweep_phases"]["n_items"]
         assert c["rows_reswept"] == tm["sweep_phases"]["rerun_rows"]
@@ -409,6 +410,7 @@ def test_profile_dir_traces_the_whole_scan(tmp_path, monkeypatch):
     with open(prof_dir / "scan_spans.json") as f:
         got = json.load(f)
     assert got["counters"]["edges_stored"] > 0 and isinstance(got["scan"], int)
+    assert got["counters"]["fasta_slow_records"] == 0
     assert {s["path"] for s in got["spans"]} >= {"scan", "lead_in", "sweep.rows"}
     assert got["paths"]["scan"]["count"] == 1
     assert 0 <= got["paths"]["lead_in"]["self_seconds"] <= got["paths"]["lead_in"]["seconds"]
