@@ -5,7 +5,9 @@ out of the result's line (nothing to read in this run).  The end-to-end
 readers are host-clock numbers of the run; the per-layer readers read
 the window's scans' stage seconds (the program's ``run_pipeline``
 timings, host clock with the device synchronized at each stage's end)
-and, in a traced run, the window's trace (``trace.Trace``).
+and, in a traced run, the window's trace (``trace.Trace``).  In a run of
+several ranks every number but ``peak_bytes`` is rank 0's
+(``run.py``'s docstring).
 """
 
 from __future__ import annotations
@@ -23,6 +25,10 @@ class Run:
     peak_bytes: int       # torch.cuda.max_memory_allocated over the window
     device_name: str
     trace: object = None  # trace.Trace of the window, in a traced run
+    # in a run of several ranks, each window scan's (tile, block-row starts)
+    # that the program dealt rank 0's sweep; None with one rank, whose sweep
+    # covers every pair
+    swept_rows: list | None = None
 
     def mean(self, *keys: str) -> float | None:
         """The mean over the scans of the sum of their ``keys`` seconds;

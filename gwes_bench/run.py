@@ -30,10 +30,40 @@ read by ``metrics/<name>.py``), ``device``, with ``--trace 1`` the
 ``breakdown``, and last ``checks``: each number compared, with its
 limit.  The same numbers end standard error.
 
+A cell whose ``chips`` is N > 1 runs as N ranks of the program on this
+host, a card each, as ``torchrun --nproc-per-node N -m spydrpick_torch``
+runs them: this process re-executes itself under PyTorch's launcher
+(``ranks.py``), and each rank runs ``run.py`` again.  Rank 0, on
+``cuda:0``, makes the alignment and writes the FASTA that every rank
+reads, says before each scan whether the window goes on, so that every
+rank runs the same scans, and prints the result.  What such a run
+reports:
+
+  * ``scan_s`` and ``setup_s``: rank 0's host clock; ``setup_s`` runs
+    from this process's start (passed to the ranks in
+    ``GWES_BENCH_STARTED_AT``; ``time.perf_counter`` is the host's
+    monotonic clock, one for all its processes), so it holds the launcher, every rank's
+    start and the rendezvous;
+  * ``peak_device_gib`` and ``device.memory_peak_bytes``: the largest
+    ``max_memory_allocated`` of any rank over the window (every rank
+    resets its peak after the warm-up): the fullest card;
+  * the per-layer metrics: rank 0's spans; ``--trace 1`` traces rank 0
+    alone, so ``device_idle_share``, ``busy_s``, ``window_s`` and the
+    ``breakdown`` are rank 0's card's, and ``k1_roofline_share`` counts
+    the pairs of the block-rows that rank 0 swept;
+  * ``device.count``: the number of ranks;
+  * ``scans_differ``: also each scan of another rank whose (edges,
+    threshold, kept columns) differ from rank 0's scan of the same index.
+
+A scan that raises on one rank, or a rank that dies, ends such a run:
+the launcher stops every rank and exits with code 1, naming the rank
+(``ranks.py``); with one rank a scan that raises counts in ``failed``.
+
 Exit codes: 0 with a result; 2 without CUDA or with fewer cards than the
-cell asks for; 3 when the process holds JAX or the JAX package after the
-window; 4 when the program cannot be imported.  None of these print a
-result.
+cell asks for; 3 when a rank holds JAX or the JAX package after the
+window; 4 when the program cannot be imported; with several ranks, 1
+from the launcher in place of any rank's code but 0.  None of these print
+a result.
 """
 
 from __future__ import annotations
@@ -43,6 +73,7 @@ import time
 T_START = time.perf_counter()
 
 import argparse  # noqa: E402
+import contextlib  # noqa: E402
 import dataclasses  # noqa: E402
 import gc  # noqa: E402
 import json  # noqa: E402
@@ -104,12 +135,13 @@ def card_power_limit() -> str:
 
 
 def execute(cell, seed: int, seconds: float, trace: bool, device, t_start: float) -> dict:
-    """One run of ``cell`` on ``device`` (module docstring); returns the
-    result's line as a dict, ``checks`` last."""
+    """One run of ``cell`` on ``device``, as rank 0 of ``cell.chips`` ranks
+    (module docstring); returns the result's line as a dict, ``checks``
+    last."""
     import numpy as np
     import torch
 
-    from gwes_bench import generate
+    from gwes_bench import generate, ranks
     from gwes_bench.cells import reader
     from gwes_bench.record import Run
     from gwes_bench.reference import options as ref_options
@@ -119,13 +151,24 @@ def execute(cell, seed: int, seconds: float, trace: bool, device, t_start: float
     cuda = device.type == "cuda"
     sync = (lambda: torch.cuda.synchronize(device)) if cuda else (lambda: None)
     work = tempfile.mkdtemp(prefix="gwes_bench.")
+    multi = cell.chips > 1
+    ctrl = None  # the control group of a run of several ranks
+    dealt: list = []  # rank 0's block-rows, each scan's (tile, rows), with ranks
+    patches = contextlib.ExitStack()
     try:
         built = _libraries()
+        if multi:
+            patches.enter_context(ranks.dealt_rows(dealt))
         codes = generate.alignment(cell.config, cell.traffic, seed, device)
         fasta = generate.write_fasta(work, codes)
         argv = generate.scan_args(cell.config, cell.traffic, fasta, seed)
         log(f"{cell.name}: {codes.shape[0]} x {codes.shape[1]} alignment written in "
             f"{time.perf_counter() - t_start:.3f} s; warm-up scan")
+        if multi:
+            _, _, info, ctrl = ranks.join(argv, work)
+            log(f"{info['process_count']} ranks joined in "
+                f"{time.perf_counter() - t_start:.3f} s: backend {info['backend']}, "
+                f"rank 0 on {info['device']}")
 
         def scan():
             out = tempfile.mkdtemp(prefix="scan.", dir=work)
@@ -135,29 +178,38 @@ def execute(cell, seed: int, seconds: float, trace: bool, device, t_start: float
 
         t0 = time.perf_counter()
         res, _, out = scan()
+        kept_columns = len(res.alignment.translation)
         del res
         shutil.rmtree(out)
         sync()
         log(f"warm-up scan {time.perf_counter() - t0:.3f} s, "
             + ("the program's libraries built in it (a checkout's first run)"
                if _libraries() != built else "no library built"))
+        if multi:
+            tile, rows = dealt[-1]
+            dealt.clear()
+            log(f"the sweep ran over {cell.chips} ranks: rank 0 swept {len(rows)} of "
+                f"{-(-kept_columns // tile)} block-rows")
         if cuda:
             torch.cuda.reset_peak_memory_stats(device)
         pick = np.random.default_rng([seed, 1])
         state = {"scans": [], "kept": None, "summary": [], "failed": 0}
 
+        go = (lambda more: more) if ctrl is None else (lambda more: ranks.go(ctrl, more))
+
         def window():
             t0 = time.perf_counter()
-            while time.perf_counter() - t0 < seconds:
+            while go(time.perf_counter() - t0 < seconds):
                 try:
                     res, tm, out = scan()
                 except Exception as exc:  # the scan failed: counted, the window ends
                     log(f"scan {len(state['scans']) + 1} failed: {exc!r}")
+                    if multi:  # the other ranks may wait inside it: the launcher ends them
+                        raise
                     state["failed"] += 1
                     break
                 state["scans"].append(tm)
-                state["summary"].append((res.edges.n_edges, res.mi_threshold,
-                                         len(res.alignment.translation)))
+                state["summary"].append(ranks.summary(res))
                 if pick.random() * len(state["scans"]) < 1.0:
                     if state["kept"] is not None:
                         shutil.rmtree(state["kept"].out_dir)
@@ -178,9 +230,20 @@ def execute(cell, seed: int, seconds: float, trace: bool, device, t_start: float
         else:
             window_s = window()
         peak = torch.cuda.max_memory_allocated(device) if cuda else 0
-        if forbidden_modules():
-            raise ForbiddenModules(forbidden_modules())
+        reports = ranks.reports(ctrl) if multi else []
+        if multi:  # the other ranks have ended: the check may use every core
+            torch.set_num_threads(len(os.sched_getaffinity(0)))
+        held = {0: forbidden_modules(), **{w["rank"]: w["forbidden"] for w in reports}}
+        held = {r: m for r, m in held.items() if m}
+        if held:
+            raise ForbiddenModules(held)
         scans, kept = state["scans"], state["kept"]
+        if reports:
+            log("ranks' scans in the window: " + " ".join(
+                str(n) for n in [len(scans)] + [len(w["scans"]) for w in reports])
+                + "; ranks' peaks (GiB): " + " ".join(
+                f"{p / 2**30:.4f}" for p in [peak] + [w["peak"] for w in reports]))
+            peak = max([peak] + [w["peak"] for w in reports])
         log(f"window: {len(scans)} scans in {window_s:.3f} s; peak {peak / 2**30:.4f} GiB; "
             f"setup {setup_s:.3f} s")
         log("bytes written since the start (/proc/self/io write_bytes, of them deleted "
@@ -199,8 +262,9 @@ def execute(cell, seed: int, seconds: float, trace: bool, device, t_start: float
                             params=ref_options.parse(argv))
             parts: dict = {}
             nums = judge(inputs, [kept], device, timings=parts)[0]
-            nums["scans_differ"] = float(sum(s != state["summary"][state["kept_index"]]
-                                             for s in state["summary"]))
+            nums["scans_differ"] = float(
+                sum(s != state["summary"][state["kept_index"]] for s in state["summary"])
+                + sum(_differing(state["summary"], w["scans"]) for w in reports))
             checks = {k: {"value": v, "limit": cell.limits[k]} for k, v in nums.items()
                       if k in cell.limits}
             log(f"checked scan {state['kept_index'] + 1} of {len(scans)} against the "
@@ -213,14 +277,14 @@ def execute(cell, seed: int, seconds: float, trace: bool, device, t_start: float
         run = Run(samples=codes.shape[0], loci=loci, scans=scans, window_s=window_s,
                   setup_s=setup_s, peak_bytes=peak,
                   device_name=torch.cuda.get_device_name(device) if cuda else "cpu",
-                  trace=tr)
+                  trace=tr, swept_rows=dealt[:len(scans)] if multi else None)
         metrics = {}
         for m in (cell.per_layer if trace else cell.end_to_end):
             value = reader(m["name"])(run) if scans else None
             if value is not None:
                 metrics[m["name"]] = {"value": value, "unit": m["unit"]}
         dev = {"platform": "gpu" if cuda else "cpu", "kind": run.device_name,
-               "count": 1, "memory_peak_bytes": int(peak)}
+               "count": cell.chips, "memory_peak_bytes": int(peak)}
         if cuda:
             dev["power_limit"] = card_power_limit()
         line = {"correct": correct, "attempted": len(scans) + state["failed"],
@@ -235,7 +299,14 @@ def execute(cell, seed: int, seconds: float, trace: bool, device, t_start: float
         line["checks"] = checks
         return line
     finally:
+        patches.close()
         shutil.rmtree(work, ignore_errors=True)
+
+
+def _differing(mine: list, theirs: list) -> int:
+    """Another rank's scans whose summary differs from rank 0's scan of the
+    same index, a scan that one of the two lacks counted as differing."""
+    return sum(a != b for a, b in zip(mine, theirs)) + abs(len(mine) - len(theirs))
 
 
 def _io_written() -> str:
@@ -281,7 +352,11 @@ def report(line: dict) -> None:
     print(json.dumps(line, allow_nan=False), flush=True)
 
 
+STARTED_AT = "GWES_BENCH_STARTED_AT"  # the run's start, for the ranks of several
+
+
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
     args = parse_args(argv)
     for var, rel in CACHE_DIRS.items():
         os.environ[var] = str(ROOT / rel)
@@ -289,22 +364,42 @@ def main(argv=None) -> int:
     from gwes_bench.cells import resolve
 
     cell = resolve(args.workload)
+    if cell.chips > 1 and STARTED_AT not in os.environ:
+        # the ranks check the cards below, so that torch is imported once a process
+        from gwes_bench.ranks import launcher
+
+        os.environ[STARTED_AT] = repr(T_START)
+        sys.stderr.flush()
+        os.execv(sys.executable, launcher(cell.chips, str(pathlib.Path(__file__).resolve()),
+                                          argv))
     import torch
 
     if not torch.cuda.is_available() or torch.cuda.device_count() < cell.chips:
         log(f"{args.workload} needs {cell.chips} CUDA card(s); "
             f"{torch.cuda.device_count() if torch.cuda.is_available() else 0} visible")
         return 2
+    return run_rank(cell, args.seed, args.seconds, bool(args.trace), torch.device("cuda:0"),
+                    float(os.environ.get(STARTED_AT, T_START)))
+
+
+def run_rank(cell, seed: int, seconds: float, trace: bool, device, t_start: float) -> int:
+    """This process's part of a run: the whole run with one rank; rank 0
+    (which reports, on ``device``) or a worker (``ranks.worker``, on the
+    card of its ``LOCAL_RANK``) with several."""
     try:
         import spydrpick_torch.pipeline  # noqa: F401
     except ImportError as exc:
         log(f"cannot import the program: {exc!r}")
         return 4
+    if cell.chips > 1 and int(os.environ["RANK"]) > 0:
+        from gwes_bench.ranks import worker
+
+        return worker()
     try:
-        line = execute(cell, args.seed, args.seconds, bool(args.trace), torch.device("cuda:0"),
-                       T_START)
+        line = execute(cell, seed, seconds, trace, device, t_start)
     except ForbiddenModules as exc:
-        log(f"the process holds {exc.args[0]} after the window")
+        log("after the window " + "; ".join(f"rank {r} holds {m}"
+                                            for r, m in exc.args[0].items()))
         return 3
     if forbidden_modules():
         log(f"the process holds {forbidden_modules()} after the window")
