@@ -8,7 +8,9 @@ the program on them (``run_pipeline`` as in a run's window; the first
 also builds the kernels), then the control's own output: the reference itself put in the
 program's place, with its crosstables in bfloat16 (operands and
 products) and its MI in float32, one step below each precision that the
-configuration states; then one float64 reference pass that judges both
+configuration states, and otherwise the reference's rules: the held
+threshold or its own tournament, unit or cluster weights, as the
+command line says; then one float64 reference pass that judges both
 outputs alike.
 Prints one JSON line per seed, ``{"seed", "program": numbers, "control":
 numbers}``; the benchmark's own runs never run it.
@@ -43,14 +45,12 @@ def control_output(control, inputs, device, work_dir: str):
     from gwes_bench.reference.scan import aracne_direct, desc_order, outlier_thresholds
 
     p = inputs.params
-    thr = control.tournament(p["seed"])
+    thr = control.save_threshold()
     L = control.L
     colmax = torch.full((L,), -np.inf, dtype=torch.float64, device=device)
     parts = []
     for i0, j0, mi in control.blocks():
-        T, W = mi.shape
-        colmax[i0:i0 + T] = torch.maximum(colmax[i0:i0 + T], mi.amax(dim=1))
-        colmax[j0:j0 + W] = torch.maximum(colmax[j0:j0 + W], mi.amax(dim=0))
+        control.fold_colmax(colmax, i0, j0, mi)
         ri, rj = (mi > thr).nonzero(as_tuple=True)
         parts.append(((ri + i0).cpu().numpy(), (rj + j0).cpu().numpy(), mi[ri, rj].cpu().numpy()))
     i, j, mi = (np.concatenate(x) for x in zip(*parts))

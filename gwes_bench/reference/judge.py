@@ -5,13 +5,16 @@ A scan's output (``ScanOutput``) is judged by these numbers, each held to
 a limit of its cell's limits file (``gwes_bench/limits/<config>.json``):
 
   filter_diff   columns kept by one side only (exact: 0);
-  thr_gap       |threshold - reference threshold| / reference threshold;
+  thr_gap       |threshold - reference threshold| / reference threshold
+                (a held threshold: the one on the command line, so 0 for a
+                sound scan; held at 0, the absolute difference);
   mi_gap        the largest |MI - reference MI| over the scan's edges;
   misplaced     the farthest a pair lies from the reference threshold on
                 the wrong side: an edge of the scan whose reference MI is
                 at most the reference threshold, or a pair above it that
                 the scan lacks; inf for an edge repeated, or with j <= i;
-  colmax_gap    the largest |colmax - reference colmax| over the columns;
+  colmax_gap    the largest |colmax - reference colmax| over the columns
+                (colmax over the pairs beyond the LD threshold);
   wog_gap       the largest |gaps-excluded MI - reference| over the edges
                 at or above the outlier threshold (the outliers file's);
   aracne_diff   edges whose flag differs from the reference's DPI rule
@@ -95,7 +98,7 @@ def judge(inputs: Inputs, outputs: list[ScanOutput], device: torch.device,
     tm = timings if timings is not None else {}
     t0 = time.perf_counter()
     ref = Reference(inputs.codes, p, device)
-    thr = ref.tournament(p["seed"])
+    thr = ref.save_threshold()
     t1 = time.perf_counter()
     tm["threshold_s"] = t1 - t0
     L = ref.L
@@ -105,7 +108,7 @@ def judge(inputs: Inputs, outputs: list[ScanOutput], device: torch.device,
     judged = []
     for n, out in zip(nums, outputs):
         n["filter_diff"] = float(len(np.setxor1d(out.kept, ref.kept)))
-        n["thr_gap"] = abs(out.threshold - thr) / thr
+        n["thr_gap"] = abs(out.threshold - thr) / (thr if thr > 0 else 1.0)
         ok = n["filter_diff"] == 0 and len(out.colmax) == L
         judged.append(_edges_on(out, L, device) if ok else None)
         if not ok:
@@ -115,8 +118,7 @@ def judge(inputs: Inputs, outputs: list[ScanOutput], device: torch.device,
     colmax = torch.full((L,), -np.inf, dtype=torch.float64, device=device)
     for i0, j0, mi in ref.blocks():
         T, W = mi.shape
-        colmax[i0:i0 + T] = torch.maximum(colmax[i0:i0 + T], mi.amax(dim=1))
-        colmax[j0:j0 + W] = torch.maximum(colmax[j0:j0 + W], mi.amax(dim=0))
+        ref.fold_colmax(colmax, i0, j0, mi)
         for n, e in zip(nums, judged):
             if e is None:
                 continue

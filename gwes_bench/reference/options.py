@@ -1,11 +1,12 @@
 """The scan options the reference reads from a command line of
 ``python -m spydrpick_torch``: the flags that change what a scan
 computes, with the SpydrPick reference's defaults (README "Usage").
-Flags that tune only how the engine computes are accepted and ignored;
-any other flag is refused, so that a traffic mix whose meaning the
-reference does not know fails loudly.  Those refused include the ones no
-cell uses yet: ``--mi-threshold``, ``--sample-weights`` and
-``--no-sample-reweighting``.
+``--mi-threshold`` holds the threshold (-1, the default, leaves it to
+the tournament; 0 is the CLI's "no threshold") and
+``--no-sample-reweighting`` gives every sample the weight 1.  Flags that
+tune only how the engine computes are accepted and ignored; any other
+flag is refused, so that a traffic mix whose meaning the reference does
+not know fails loudly: ``--sample-weights`` among them.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ ENGINE_FLAGS = (("--tile", True), ("--mxu-int8", True), ("--store-capacity", Tru
 def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(add_help=False, allow_abbrev=False)
     p.add_argument("alignmentfile")
+    p.add_argument("--mi-threshold", type=float, default=-1.0)
     p.add_argument("--mi-values", type=int, default=0)
     p.add_argument("--mi-pseudocount", type=float, default=0.5)
     p.add_argument("--mi-threshold-iterations", type=int, default=10)
@@ -42,6 +44,7 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--genome-size", type=int, default=None)
     p.add_argument("--output-indexing-base", type=int, default=1)
     p.add_argument("--linear-genome", action="store_true")
+    p.add_argument("--no-sample-reweighting", action="store_true")
     p.add_argument("--sample-reweighting-threshold", type=float, default=0.9)
     p.add_argument("--aracne-edge-threshold", type=float,
                    default=float(np.finfo(np.float64).eps))

@@ -10,7 +10,7 @@ port documents them:
     frequency <= gap, all over the unweighted sample count;
   * the sample weights: 1 / the number of samples whose share of
     identical kept columns (the gap state included) is at least the
-    reweighting threshold;
+    reweighting threshold; all 1.0 with ``--no-sample-reweighting``;
   * the weighted 5 x 5 crosstable of a column pair,
     ``C[a, b] = sum_s w_s [x_si == a][x_sj == b]``, and its MI with a
     pseudocount on the present cells (``mi_from_tables``);
@@ -18,8 +18,11 @@ port documents them:
     from ``numpy.random.default_rng(seed)`` in the stream of
     ``draw_pairs``; each sample's ascending order statistic at
     ``floor(percentile * pairs)``; the lower median of the samples;
+  * the save threshold: ``--mi-threshold`` where it is held (>= 0), else
+    the tournament's;
   * the sweep: every pair i < j with MI > threshold is an edge; colmax is
-    each column's largest MI over all its pairs;
+    each column's largest MI over its pairs at a genome distance (the
+    couplings file's, ``render.positions``) above the LD threshold;
   * the outlier thresholds: Q3 + 1.5 IQR and Q3 + 3 IQR of colmax, with
     indexing quartiles ``sorted(colmax)[n // 4 * q]``;
   * the gaps-excluded MI of an edge: the same table with the gap state
@@ -157,8 +160,12 @@ class Reference:
         self.presence_wog[:, GAP] = False
         self.gap = self.presence[:, GAP]
         self.states = torch.arange(N_STATES, dtype=torch.uint8, device=device)
-        w = self.cluster_weights(params["sample_reweighting_threshold"])
-        self.w64 = torch.from_numpy(w).to(device)
+        self.pos = torch.from_numpy(self.kept).to(device)
+        if params["no_sample_reweighting"]:
+            self.w64 = torch.ones(self.S, dtype=torch.float64, device=device)
+        else:
+            w = self.cluster_weights(params["sample_reweighting_threshold"])
+            self.w64 = torch.from_numpy(w).to(device)
 
     def cluster_weights(self, threshold: float) -> np.ndarray:
         """1 / the number of samples whose share of identical kept
@@ -200,7 +207,13 @@ class Reference:
             out.append(mi.double().cpu().numpy())
         return np.concatenate(out) if out else np.zeros(0)
 
-    # ------------------------------------------------------------ tournament
+    # ------------------------------------------------------------ threshold
+    def save_threshold(self) -> float:
+        """The held ``--mi-threshold`` where it is >= 0; else the
+        tournament's on the scan's seed."""
+        held = self.params["mi_threshold"]
+        return float(held) if held >= 0 else self.tournament(self.params["seed"])
+
     def tournament(self, seed: int) -> float:
         """The automatic MI save threshold (module docstring)."""
         L = self.L
@@ -246,6 +259,18 @@ class Reference:
                 jg = torch.arange(j0, j0 + W, device=self.device)
                 mi.masked_fill_(jg[None, :] <= ig[:, None], -np.inf)
                 yield i0, j0, mi
+
+    def fold_colmax(self, colmax: torch.Tensor, i0: int, j0: int, mi: torch.Tensor) -> None:
+        """Fold a block of ``blocks`` into ``colmax`` (float64, (L,)): each
+        row's and column's largest MI over the block's pairs whose genome
+        distance exceeds the LD threshold."""
+        T, W = mi.shape
+        d = (self.pos[i0:i0 + T, None] - self.pos[None, j0:j0 + W]).abs()
+        if not self.params["linear_genome"]:
+            d = torch.minimum(d, self.n_original - d)
+        far = mi.masked_fill(d <= self.params["ld_threshold"], -np.inf)
+        colmax[i0:i0 + T] = torch.maximum(colmax[i0:i0 + T], far.amax(dim=1))
+        colmax[j0:j0 + W] = torch.maximum(colmax[j0:j0 + W], far.amax(dim=0))
 
 
 # --------------------------------------------------------------------------- #

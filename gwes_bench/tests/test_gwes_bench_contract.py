@@ -99,6 +99,9 @@ def test_every_cell_resolves_its_files(workload):
     assert workload["chips"] in (1, 4) and _line(workload["why"])
     assert NAME.match(workload["traffic"])
     cell = cells.resolve(workload["name"])
+    assert cell.config["name"] == workload["config"]
+    assert cell.traffic["name"] == workload["traffic"]
+    assert (cells.PACKAGE / "limits" / f"{workload['config']}.json").is_file()
     assert cell.config["samples"] > 0 and cell.config["loci"] > 0
     assert cell.traffic["loop"] == "closed"
     reported = {m["name"] for m in cell.end_to_end}
