@@ -9,10 +9,13 @@ Phases (each raises on failure; nothing is caught):
      the nvcc build of spydrpick_torch/csrc (ptxas registers and spills),
      the g++ build of the native host libraries (spydrpick_torch/native),
      and a SASS check (cuobjdump) that K1's, B3's and B4's kernels run on
-     the tensor cores: IMMA (int8) or HMMA (bf16), and no IDP.4A;
+     the tensor cores: IMMA (int8) or HMMA (bf16) on the mma.sync loop,
+     IGMMA (the int8 warpgroup MMA) on K1's wgmma loop, and no IDP.4A;
   2. kernel K1 (MI tile) against its plain PyTorch version, max |dmi| <=
      1e-5 (0 in the int8 modes), with both times and K1's bound and
-     roofline share:
+     roofline share; in the int8 modes on both of its main loops (the
+     wgmma loop, the default, and the mma.sync loop), each timed, equal bit
+     for bit:
      a. on random slab operands at S=3072, TI=512 and TJ in {512, 30720},
         in the fixed14, unit-int8 and bf16 modes, copied K-major as K1
         reads them;
@@ -320,7 +323,9 @@ TC_KERNELS = ("mi_tile_mma_kernel", "mi_tile_dual_mma_kernel", "crosstab_mma_ker
 
 def check_sass(lib):
     """K1's, B3's and B4's kernels must run on the tensor cores: their SASS
-    (cuobjdump) holds IMMA (int8 instance) or HMMA (bf16) and no IDP.4A."""
+    (cuobjdump) holds IMMA (int8 instance) or HMMA (bf16) on the mma.sync
+    loop, IGMMA on K1's wgmma loop (the instance named with ``Wgmma``), and
+    no IDP.4A."""
     from spydrpick_torch.ops import cuda_build
 
     cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc_path()), "cuobjdump")
@@ -333,20 +338,22 @@ def check_sass(lib):
         if kernel is None:
             continue
         ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", block)
-        mma = sorted({o.split(".")[0] for o in ops if o.startswith(("IMMA", "HMMA", "HGMMA"))})
+        mma = sorted({o.split(".")[0] for o in ops
+                      if o.startswith(("IMMA", "HMMA", "HGMMA", "IGMMA"))})
         dp4a = sum(o.startswith("IDP") for o in ops)
-        bf16 = "bfloat16" in name
-        print(f"#   SASS {kernel}<{'bf16' if bf16 else 'int8'}>: {len(ops)} instructions, "
+        bf16, wgmma = "bfloat16" in name, "Wgmma" in name
+        label = "bf16" if bf16 else "int8, wgmma" if wgmma else "int8"
+        print(f"#   SASS {kernel}<{label}>: {len(ops)} instructions, "
               f"tensor-core {mma} x{sum(o.startswith(tuple(mma)) for o in ops) if mma else 0}, "
               f"IDP.4A x{dp4a}")
-        want = "HMMA" if bf16 else "IMMA"
-        if not any(m.startswith(want) or m == "HGMMA" for m in mma) or dp4a:
-            raise AssertionError(f"{kernel} ({'bf16' if bf16 else 'int8'}): SASS has "
-                                 f"tensor-core ops {mma} and {dp4a} IDP.4A")
-        found[(kernel, bf16)] = True
-    if len(found) != 2 * len(TC_KERNELS):
+        want = "HMMA" if bf16 else "IGMMA" if wgmma else "IMMA"
+        if want not in mma or dp4a:
+            raise AssertionError(f"{kernel} ({label}): SASS has tensor-core ops {mma} and "
+                                 f"{dp4a} IDP.4A, not {want}")
+        found[(kernel, bf16, wgmma)] = True
+    if len(found) != 2 * len(TC_KERNELS) + 1 or ("mi_tile_mma_kernel", False, True) not in found:
         raise AssertionError(f"SASS check found {sorted(found)}, expected both instances of "
-                             f"{TC_KERNELS}")
+                             f"{TC_KERNELS} and K1's wgmma instance")
 
 
 def phase_env():
@@ -376,7 +383,8 @@ def phase_env():
         if m:
             targs = m.group(2) or ""
             args = re.findall(r"L[ib](\d+)E", targs + "E") or (
-                ["bf16" if "bfloat16" in targs else "int8"] if targs else [])
+                ["bf16" if "bfloat16" in targs else "int8, wgmma" if "Wgmma" in targs
+                 else "int8"] if targs else [])
             kernel = m.group(1) + (f"<{', '.join(args)}>" if args else "")
         elif "registers" in line or "spill" in line:
             print(f"#   ptxas {kernel}: {line.split('info    :')[-1].strip()}")
@@ -420,23 +428,42 @@ def kmajor_args(args):
 
 
 def k1_compare(label, args, n, n_plain):
-    """K1 against its plain version on the same arguments: max |dmi| (raises
-    past K1_TOL), both mean times and K1's bound (ms, what sets it)."""
-    from spydrpick_torch.ops.mi_kernels import mi_tile_single, mi_tile_single_plain
+    """K1 against its plain version on the same arguments, on each main loop
+    that takes them (int8: the wgmma loop, the default, then the mma.sync
+    loop, whose MI must equal the default's bit for bit): max |dmi| (raises
+    past K1_TOL), {loop: mean ms} with the default loop first, the plain
+    version's mean ms and K1's bound (ms, what sets it)."""
+    from spydrpick_torch.ops.mi_kernels import k1_loop, mi_tile_single, mi_tile_single_plain
 
-    got = mi_tile_single(*args)
+    loops = [k1_loop(args[0].dtype, args[0].shape[0])]
+    if loops[0] == "wgmma":
+        loops.append("mma_sync")
     want = mi_tile_single_plain(*args)
-    torch.cuda.synchronize()
-    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
-        raise AssertionError(f"K1 {label}: shape {tuple(got.shape)} or non-finite output")
-    err = float((got - want).abs().max())
-    if err > K1_TOL:
-        raise AssertionError(f"K1 {label}: max|dmi| {err} > {K1_TOL}")
-    del got, want
-    ms = cuda_time_ms(lambda: mi_tile_single(*args), n)
+    first, err = None, 0.0
+    for loop in loops:
+        got = mi_tile_single(*args, loop=loop)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"K1 {label} ({loop}): shape {tuple(got.shape)} or "
+                                 "non-finite output")
+        err = max(err, float((got - want).abs().max()))
+        if err > K1_TOL:
+            raise AssertionError(f"K1 {label} ({loop}): max|dmi| {err} > {K1_TOL}")
+        if first is None:
+            first = got
+        elif not torch.equal(got, first):
+            raise AssertionError(f"K1 {label}: the {loop} loop's MI differs from the "
+                                 f"{loops[0]} loop's")
+    del first, got, want
+    ms = {loop: cuda_time_ms(lambda: mi_tile_single(*args, loop=loop), n) for loop in loops}
     plain_ms = cuda_time_ms(lambda: mi_tile_single_plain(*args), n_plain)
     TI, TJ = args[0].shape[1] // 5, args[2].shape[1] // 5
     return err, ms, plain_ms, xtab_bound(args[0], args[1], args[2], TI * TJ * 4, 1)
+
+
+def k1_times(ms, bound_ms):
+    """Each loop's time beside K1's bound and roofline share."""
+    return "; ".join(f"{loop} {t:.3f} ms, {share(t, bound_ms)}" for loop, t in ms.items())
 
 
 def phase_k1(dev, S=3072, TI=512, widths=(512, 30720)):
@@ -453,11 +480,12 @@ def phase_k1(dev, S=3072, TI=512, widths=(512, 30720)):
                                                           2 if n == 5 else n)
             worst = max(worst, err)
             passes = len(mults)
-            tops = 2.0 * S * (TI * 5) * (TJ * 5) * passes / (ms * 1e-3) / 1e12
+            best = min(ms.values())
+            tops = 2.0 * S * (TI * 5) * (TJ * 5) * passes / (best * 1e-3) / 1e12
             unit = "int8 TOP/s" if xi_hi.dtype == torch.int8 else "bf16 TFLOP/s"
             print(f"# K1 {mode:8s} S={S} TI={TI} TJ={TJ:5d}: max|dmi|={err:.3e} "
-                  f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, {tops:.2f} {unit} "
-                  f"({passes} pass{'es' if passes > 1 else ''}); {share(ms, bound_ms)}",
+                  f"plain {plain_ms:.3f} ms, {tops:.2f} {unit} "
+                  f"({passes} pass{'es' if passes > 1 else ''}); {k1_times(ms, bound_ms)}",
                   flush=True)
             del args, xi_hi, xi_lo, xj
             torch.cuda.empty_cache()
@@ -706,11 +734,12 @@ def phase_k1_main(dev, fasta, wfile):
             worst = max(worst, err)
             print(f"# K1 main path {mode:7s} S={eng.S} i0={i0:5d} TJ={xj.shape[1] // 5:5d} "
                   f"(xi {xi.dtype} K-major, row stride {xi.stride(1)}, xj row stride "
-                  f"{xj.stride(1)}): max|dmi|={err:.3e} kernel {ms:.3f} ms, plain "
-                  f"{plain_ms:.3f} ms; {share(ms, bound_ms)}", flush=True)
+                  f"{xj.stride(1)}): max|dmi|={err:.3e} plain {plain_ms:.3f} ms; "
+                  f"{k1_times(ms, bound_ms)}", flush=True)
             if mode == "fixed14" and i0 == 0:
-                main = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by, "library_ms": None}
+                main = {"ms": next(iter(ms.values())), "mma_sync_ms": ms["mma_sync"],
+                        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": None}
             del xi, xj
             dual = eng.row_dual_args(i0)
             res = b3_compare(f"main-path {mode} i0={i0}", dual, 5, 2)
@@ -946,6 +975,7 @@ def phase_main(dev, td, fasta, wfile, S=S_BENCH, L=L_BENCH):
            column_state_counts, pairs_xtab)
     for fn in fns:
         fn.launches = 0
+    mi_tile_single.launches_wgmma = 0
     log = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(log):
@@ -959,7 +989,8 @@ def phase_main(dev, td, fasta, wfile, S=S_BENCH, L=L_BENCH):
     if mode != "fixed14":
         raise AssertionError(f"main path ran int8 mode {mode}, not fixed14")
     n_rows = -(-L // TILE)
-    for name in ("mi_tile_single", "row_select"):
+    launches["mi_tile_single_wgmma"] = mi_tile_single.launches_wgmma
+    for name in ("mi_tile_single", "mi_tile_single_wgmma", "row_select"):
         if launches[name] != n_rows:
             raise AssertionError(f"main path launched kernel {name} {launches[name]} times, "
                                  f"not once per block-row ({n_rows})")
@@ -999,7 +1030,7 @@ def phase_main(dev, td, fasta, wfile, S=S_BENCH, L=L_BENCH):
     print("# " + re.search(r"tournament phases: .*", text).group(0))
     print(f"# peak device memory {peak / 2**30:.2f} GiB; launches {launches}", flush=True)
     print(f"# main path files byte-identical to the ones pinned (sha256): {digests}", flush=True)
-    return launches, out_dir, float(stages["sweep_s"]), thr, n_edges
+    return launches, out_dir, float(stages["sweep"]), thr, n_edges
 
 
 def pipeline_engine(dev, fasta, wfile):
@@ -1466,7 +1497,7 @@ def phase_checkpoint(dev, td, fasta, wfile, main_out, main_sweep_s, L=L_BENCH,
 
 def sweep_seconds(log):
     """(sweep_s, checkpoint_s) of a checkpointed CLI run's ``-v`` log."""
-    return (float(re.search(r"stage time: sweep_s ([\d.]+)s", log).group(1)),
+    return (float(re.search(r"stage time: sweep ([\d.]+)s", log).group(1)),
             float(re.search(r"checkpoint saves: ([\d.]+)s", log).group(1)))
 
 

@@ -38,6 +38,9 @@ _SIGNATURES = {
     # K-major operands' row strides, here and for B3 and B4)
     "spk_mi_tile_single": [_i, _vp, _vp, _vp, _ll, _ll, _vp, _vp, _vp, _ll,
                            _i, _i, _i, _i, _i, _i, _d, _d, _f, _f, _vp],
+    # loop (0: mma.sync, 1: wgmma), then spk_mi_tile_single's arguments
+    "spk_mi_tile_single_loop": [_i, _i, _vp, _vp, _vp, _ll, _ll, _vp, _vp, _vp, _ll,
+                                _i, _i, _i, _i, _i, _i, _d, _d, _f, _f, _vp],
     # dtype, xi_hi, xi_lo, xj, ldi, ldj, ipf, jpf, ipwf, jpwf, out, out_wog,
     # ldo, S, TI, TJ, bw_i, bw_j, n_passes, m0, m1, acc_scale, pc, stream
     "spk_mi_tile_dual": [_i, _vp, _vp, _vp, _ll, _ll, _vp, _vp, _vp, _vp, _vp, _vp,

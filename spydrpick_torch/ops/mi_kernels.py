@@ -13,8 +13,10 @@ presence vectors (wog).  ``crosstab_tile`` (B4) returns the crosstable
 itself, unscaled (int32 for int8 operands), so that sample shards can sum
 it exactly; ``xtab_to_f32`` converts the sum as K1 does and
 ``mi_epilogue`` (B5) runs K1's epilogue on it.  On CUDA tensors each
-launches its hand-written kernel (K1, B3 and B4 in ``csrc/xtab_mma.cu`` on
-one tensor-core main loop, B5 in ``csrc/xtab.cu``; design notes there); on
+launches its hand-written kernel (K1, B3 and B4 in ``csrc/xtab_mma.cu``:
+K1's int8 modes on a TMA-fed ``wgmma`` loop, ``csrc/xtab_wgmma.cuh``, the
+rest on one ``mma.sync`` loop, ``csrc/xtab_mma.cuh``; B5 in
+``csrc/xtab.cu``; design notes there; ``k1_loop`` is K1's rule); on
 CPU tensors it runs its ``*_plain`` twin, the same function in plain
 PyTorch.  One launch may cover a whole block-row (TJ = every column from
 the diagonal tile on): it is the same function on a wider tile.
@@ -275,16 +277,30 @@ def _kernel_operands(xs, xj):
     return hi, lo, _kernel_operand(xj)
 
 
+K1_LOOPS = ("mma_sync", "wgmma")
+
+
+def k1_loop(dtype: torch.dtype, S: int) -> str:
+    """K1's main loop on the card for operands of ``dtype`` with S samples
+    (``csrc/xtab_mma.cu:k1_loop``, the same rule): "wgmma" (TMA-fed
+    warpgroup MMAs, ``csrc/xtab_wgmma.cuh``) for int8 operands with at
+    least one sample, whatever the tile (every tile the wrapper takes is
+    in 32-column slab runs, which the wgmma loop's boxes need), else
+    "mma_sync" (bf16, and S = 0, for which no TMA map exists)."""
+    return "wgmma" if dtype == torch.int8 and S > 0 else "mma_sync"
+
+
 def mi_tile_single(xi_hi, xi_lo, xj, ipf, jpf, pseudocount: float = 0.5,
                    bw: int = BW, pass_mults: tuple = (1, 1),
-                   acc_scale: float = 1.0) -> torch.Tensor:
+                   acc_scale: float = 1.0, *, loop: str | None = None) -> torch.Tensor:
     """(TI, TJ) f32 MI of a tile (see module docstring).  Operands are
     (S, TI*5) / (S, TJ*5) slab one-hots with unit column stride (row
     strides may exceed the width: column slices of the alignment's
     one-hot pass without a copy); ipf/jpf are (TI*5,)/(TJ*5,) slab
     presence.  ``xi_lo=None`` selects the single-pass mode.  Operands may
     also be K-major views (module docstring); two int8 passes need m1 to
-    divide m0 on the card."""
+    divide m0 on the card.  ``loop`` picks the card's main loop (one of
+    ``K1_LOOPS``; by default ``k1_loop``'s); both give the same bits."""
     if xj.device.type == "cpu":
         return mi_tile_single_plain(xi_hi, xi_lo, xj, ipf, jpf, pseudocount,
                                     bw, pass_mults, acc_scale)
@@ -295,11 +311,14 @@ def mi_tile_single(xi_hi, xi_lo, xj, ipf, jpf, pseudocount: float = 0.5,
     out = torch.empty((TI, TJ), dtype=torch.float32, device=xj.device)
     if out.numel() == 0:
         return out
+    loop = k1_loop(xi_hi.dtype, S) if loop is None else loop
+    if loop not in K1_LOOPS or (loop == "wgmma" and k1_loop(xi_hi.dtype, S) != loop):
+        raise ValueError(f"mi_tile_single: loop {loop!r} for {xi_hi.dtype} operands, S={S}")
     hi, lo, xk = _kernel_operands(xs, xj)
     lib = cuda_build.load()
     stream = torch.cuda.current_stream(xj.device).cuda_stream
-    rc = lib.spk_mi_tile_single(
-        0 if xi_hi.dtype == torch.int8 else 1,
+    rc = lib.spk_mi_tile_single_loop(
+        K1_LOOPS.index(loop), 0 if xi_hi.dtype == torch.int8 else 1,
         hi.data_ptr(), lo.data_ptr(), xk.data_ptr(),
         hi.stride(1), xk.stride(1), ipf.data_ptr(), jpf.data_ptr(),
         out.data_ptr(), out.stride(0), S, TI, TJ, bw, bw, len(xs),
@@ -307,10 +326,12 @@ def mi_tile_single(xi_hi, xi_lo, xj, ipf, jpf, pseudocount: float = 0.5,
         stream)
     cuda_build.check(rc, "mi_tile_single")
     mi_tile_single.launches += 1
+    mi_tile_single.launches_wgmma += loop == "wgmma"
     return out
 
 
 mi_tile_single.launches = 0  # kernel launches (CPU calls do not count)
+mi_tile_single.launches_wgmma = 0  # of them, those on the wgmma loop
 
 
 def mi_tile_dual(xi_hi, xi_lo, xj, ipf, jpf, ipwf, jpwf, pseudocount: float = 0.5,

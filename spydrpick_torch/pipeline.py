@@ -295,7 +295,8 @@ def run_pipeline(opts: PipelineOptions, write_outputs: bool = True,
     total_s (span scan, the whole call).  Each stage's span ends after a
     wait for the device, so a stage's time includes its device work.  The
     counters launches.<wrapper> hold the scan's kernel launches of each
-    wrapper (its ``launches`` attribute, read at the scan's start and end).
+    wrapper (its ``launches`` attribute, read at the scan's start and end),
+    launches.mi_tile_single_wgmma those of K1 on its wgmma loop.
     ``opts.profile_dir`` traces the whole call (``profile_trace``).
     Without any of the three nothing is recorded."""
     record = timings
@@ -316,10 +317,13 @@ def run_pipeline(opts: PipelineOptions, write_outputs: bool = True,
 
 
 def _launches() -> dict:
-    """Each kernel wrapper's ``launches`` count, by the wrapper's name."""
-    return {fn.__name__: fn.launches
-            for fn in (mi_tile_single, mi_tile_dual, crosstab_tile, mi_epilogue, row_select,
-                       aracne_flags, format_couplings_rows, column_state_counts, pairs_xtab)}
+    """Each kernel wrapper's ``launches`` count, by the wrapper's name, and
+    K1's launches on its wgmma loop (``mi_tile_single_wgmma``)."""
+    counts = {fn.__name__: fn.launches
+              for fn in (mi_tile_single, mi_tile_dual, crosstab_tile, mi_epilogue, row_select,
+                         aracne_flags, format_couplings_rows, column_state_counts, pairs_xtab)}
+    counts["mi_tile_single_wgmma"] = mi_tile_single.launches_wgmma
+    return counts
 
 
 def _scan(opts: PipelineOptions, write_outputs: bool, tm: dict | None) -> PipelineResult:

@@ -9,8 +9,9 @@ each by its own ``nvcc`` (all started together), into cubins under
 ``--out`` (default ``build/sass/``), disassembles them with ``cuobjdump
 -sass`` and prints one line per kernel instance: its instruction count in
 this tree and in the other, and whether the instructions are identical.
-Kernel names are matched with the per-file hash of the anonymous namespace
-removed.  Needs the CUDA toolkit, not a GPU.
+Kernel names are matched with the anonymous namespace's name removed (it
+holds a hash of the build and one of the source, which changes with any
+edit of the file).  Needs the CUDA toolkit, not a GPU.
 """
 
 from __future__ import annotations
@@ -27,14 +28,24 @@ from spydrpick_torch.ops import cuda_build
 _INSTRUCTION = re.compile(r"/\*[0-9a-f]{4,}\*/")
 
 
+def plain_name(name: str) -> str:
+    """A mangled kernel name with its anonymous namespace's length-prefixed
+    name (``44_GLOBAL__N__<hash>_11_xtab_mma_cu_<hash>``) cut to
+    ``_GLOBAL__N_``."""
+    m = re.search(r"(\d+)_GLOBAL__N__", name)
+    if m is None:
+        return name
+    return name[:m.start()] + "_GLOBAL__N_" + name[m.end(1) + int(m.group(1)):]
+
+
 def sass_functions(text: str) -> dict[str, list[str]]:
     """``cuobjdump -sass`` output -> {kernel name: instruction lines}, the
-    name without the anonymous namespace's per-file hash."""
+    name without its anonymous namespace's (``plain_name``)."""
     out = {}
     for block in re.split(r"\n\s*Function : ", text)[1:]:
         name, _, body = block.partition("\n")
-        name = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__", name.strip())
-        out[name] = [line.strip() for line in body.splitlines() if _INSTRUCTION.search(line)]
+        out[plain_name(name.strip())] = [line.strip() for line in body.splitlines()
+                                         if _INSTRUCTION.search(line)]
     return out
 
 

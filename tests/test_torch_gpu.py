@@ -18,6 +18,8 @@ from spydrpick_torch.ops.mi_kernels import (
     BW,
     crosstab_tile,
     crosstab_tile_plain,
+    k1_loop,
+    k_major,
     mi_epilogue,
     mi_epilogue_plain,
     mi_tile_dual,
@@ -74,6 +76,69 @@ def test_cuda_k1_matches_plain(cuda_device, mode):
     assert mi_tile_single.launches == launches + 1
     assert bool(torch.isfinite(got).all())
     assert float((got - want).abs().max()) <= TOL
+
+
+def k1_window_operands(mode, S, bw, i0, TI, j0, TJ, dev, seed=11):
+    """K1's arguments for the (i0, TI) x (j0, TJ) tile of random one-hots in
+    slab blocks of bw, each operand a K-major view as the engine keeps it."""
+    rng = np.random.default_rng(seed)
+    n = max(i0 + TI, j0 + TJ)
+    codes = rng.integers(0, 5, size=(S, n))
+    oh = np.zeros((S, n, 5), np.int8)
+    np.put_along_axis(oh, codes[:, :, None], 1, axis=2)
+    x = to_slab(torch.from_numpy(oh.reshape(S, n * 5)), bw).to(dev)
+    pf = to_slab(torch.from_numpy((oh.sum(0) > 0).astype(np.float32).reshape(-1)), bw).to(dev)
+    cols = lambda t, c0, m: k_major(t[:, c0 * 5:(c0 + m) * 5])[:, :S].T
+    if mode == "unit":
+        hi, lo, mults, scale = cols(x, i0, TI), None, (1,), 1.0
+    else:
+        w = rng.random(S) * 0.9 + 0.1
+        w_q = torch.from_numpy(np.round(w * 16383.0 / w.max()).astype(np.int32)).to(dev)
+        x32 = x.to(torch.int32)
+        hi = cols((x32 * (w_q // 128)[:, None]).to(torch.int8), i0, TI)
+        lo = cols((x32 * (w_q % 128)[:, None]).to(torch.int8), i0, TI)
+        mults, scale = (128, 1), float(w.max()) / 16383.0
+    return (hi, lo, cols(x, j0, TJ), pf[i0 * 5:(i0 + TI) * 5], pf[j0 * 5:(j0 + TJ) * 5], 0.5,
+            bw, mults, scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["unit", "fixed14"])
+@pytest.mark.parametrize("bw,S,i0,TI,j0,TJ", [
+    (128, 3000, 0, 512, 0, 1024),    # the main path's block-row, cut in width
+    (128, 257, 128, 512, 384, 640),  # a ragged last 128-byte chunk; i0 != 0, j0 != i0
+    (128, 64, 0, 128, 0, 256),       # fewer sample bytes than one stage
+    (32, 3000, 32, 32, 96, 256),     # half an i tile
+    (32, 257, 0, 96, 64, 320),       # a ragged i tile (64 + 32 columns)
+])
+def test_cuda_k1_wgmma_matches_plain_and_mma_sync(cuda_device, mode, bw, S, i0, TI, j0, TJ):
+    """K1 in the int8 modes takes the wgmma loop by default and gives its
+    plain version's and the mma.sync loop's MI bit for bit; the launch
+    counts say which loop ran."""
+    args = k1_window_operands(mode, S, bw, i0, TI, j0, TJ, cuda_device)
+    assert k1_loop(torch.int8, S) == "wgmma"
+    launches, wgmma = mi_tile_single.launches, mi_tile_single.launches_wgmma
+    got = mi_tile_single(*args)
+    old = mi_tile_single(*args, loop="mma_sync")
+    want = mi_tile_single_plain(*args)
+    torch.cuda.synchronize()
+    assert mi_tile_single.launches == launches + 2
+    assert mi_tile_single.launches_wgmma == wgmma + 1
+    assert got.shape == (TI, TJ) and bool(torch.isfinite(got).all())
+    assert torch.equal(got, want)
+    assert torch.equal(got, old)
+
+
+@pytest.mark.gpu
+def test_cuda_k1_loop_refusals(cuda_device):
+    """bf16 operands have no wgmma loop, and a loop outside ``K1_LOOPS`` is
+    refused: nothing launches."""
+    hi, lo, xj, ipf, jpf, mults, scale = k1_operands("bf16", 64, 128, 128, cuda_device)
+    launches = mi_tile_single.launches
+    for loop in ("wgmma", "mma.sync"):
+        with pytest.raises(ValueError, match="loop"):
+            mi_tile_single(hi, lo, xj, ipf, jpf, 0.5, BW, mults, scale, loop=loop)
+    assert mi_tile_single.launches == launches
 
 
 def select_case(dev, density, with_wog, T=64, i0=128, Lp=3200, L=3100, seed=5):

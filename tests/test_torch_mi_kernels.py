@@ -198,23 +198,45 @@ def test_b3_refuses_what_the_tensor_core_loop_cannot_run(case):
 
 def test_sass_listing_pairs_kernels_across_builds():
     """``sass_compare`` reads cuobjdump's listing into kernels named
-    without the anonymous namespace's per-file hash, so the kernels of two
-    builds of one file pair up, and their instruction lines (with their
-    encodings) tell whether the code changed."""
-    def listing(file_hash, op):
+    without the anonymous namespace's name (a hash of the build and one of
+    the source, which an edit elsewhere in the file changes), so the kernels
+    of two builds of one file pair up, and their instruction lines (with
+    their encodings) tell whether the code changed."""
+    def listing(file_hash, source_hash, op):
         return ("\n\tcode for sm_90a\n\t\tFunction : _ZN44_GLOBAL__N__" + file_hash
-                + "_11_xtab_mma_cu_8ac9ee7818mi_tile_mma_kernelIaEEvPKT_\n"
+                + "_11_xtab_mma_cu_" + source_hash + "18mi_tile_mma_kernelIaEEvPKT_\n"
                 '\t.headerflags\t@"EF_CUDA_SM90"\n'
                 "        /*0000*/    LDC R1, c[0x0][0x28] ;    /* 0x00000a00ff017b82 */\n"
                 "                                              /* 0x000e700000000800 */\n"
                 f"        /*0010*/    {op} ;    /* 0x0000000000137919 */\n")
 
-    a = sass_compare.sass_functions(listing("afdd503b", "S2R R19, SR_TID.X"))
-    b = sass_compare.sass_functions(listing("31c813b1", "S2R R19, SR_TID.X"))
-    c = sass_compare.sass_functions(listing("31c813b1", "S2R R13, SR_TID.X"))
-    name = "_ZN44_GLOBAL__N__11_xtab_mma_cu_8ac9ee7818mi_tile_mma_kernelIaEEvPKT_"
+    a = sass_compare.sass_functions(listing("afdd503b", "8ac9ee78", "S2R R19, SR_TID.X"))
+    b = sass_compare.sass_functions(listing("31c813b1", "5c6a2dfe", "S2R R19, SR_TID.X"))
+    c = sass_compare.sass_functions(listing("31c813b1", "5c6a2dfe", "S2R R13, SR_TID.X"))
+    name = "_ZN_GLOBAL__N_18mi_tile_mma_kernelIaEEvPKT_"
     assert list(a) == list(b) == list(c) == [name]
     assert len(a[name]) == 2 and a == b and a != c
+
+
+@pytest.mark.parametrize("dtype,S,loop", [
+    (torch.int8, 3000, "wgmma"),     # fixed14 and unit, the main path
+    (torch.int8, 1, "wgmma"),        # fewer samples than one staged chunk
+    (torch.int8, 0, "mma_sync"),     # no sample: no TMA map to build
+    (torch.bfloat16, 3000, "mma_sync"),  # the "off" mode keeps the mma.sync loop
+    (torch.bfloat16, 0, "mma_sync"),
+])
+def test_k1_loop_route(dtype, S, loop):
+    """K1's main loop on the card (``k1_loop``, the rule of
+    ``csrc/xtab_mma.cu:k1_loop``): int8 operands with samples take the
+    wgmma loop whatever the tile the wrapper accepts; bf16 keeps mma.sync.
+    CPU calls run the plain version and count no launch on either loop."""
+    assert mi_kernels.k1_loop(dtype, S) == loop
+    assert mi_kernels.K1_LOOPS == ("mma_sync", "wgmma")
+    x = torch.zeros((max(S, 1), BW * N_STATES), dtype=dtype)
+    p = torch.ones(BW * N_STATES)
+    counts = mi_tile_single.launches, mi_tile_single.launches_wgmma
+    mi_tile_single(x, None, x, p, p, 0.5, BW, (1,), 1.0, loop=loop)
+    assert (mi_tile_single.launches, mi_tile_single.launches_wgmma) == counts
 
 
 def test_k1_b4_refuse_what_the_tensor_core_loop_cannot_run():

@@ -348,11 +348,13 @@ def test_counters_match_the_results(scans):
         assert c["bytes_written.outliers"] == os.path.getsize(res.outliers_path)
         assert c["bytes_written.nodes"] == sum(os.path.getsize(os.path.join(out_dir, f))
                                                for f in nodes)
-        # the CPU launches no kernel; every wrapper's count is there
+        # the CPU launches no kernel; every wrapper's count is there, and
+        # K1's on its wgmma loop
         launches = {k: v for k, v in c.items() if k.startswith("launches.")}
         assert set(launches) == {f"launches.{n}" for n in (
-            "mi_tile_single", "mi_tile_dual", "crosstab_tile", "mi_epilogue", "row_select",
-            "aracne_flags", "format_couplings_rows", "column_state_counts", "pairs_xtab")}
+            "mi_tile_single", "mi_tile_single_wgmma", "mi_tile_dual", "crosstab_tile",
+            "mi_epilogue", "row_select", "aracne_flags", "format_couplings_rows",
+            "column_state_counts", "pairs_xtab")}
         assert not any(launches.values())
 
 
