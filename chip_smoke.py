@@ -61,9 +61,9 @@ Phases (each raises on failure; nothing is caught):
      generator) with the automatic threshold; K1 and B2 must each have
      been launched once per block-row (60), the ARACNE kernel once, the
      couplings formatter, the column counts and the pairs' crosstables at
-     least once (its -v log's preprocess and tournament phases printed),
-     and its files must be
-     byte-identical to the ones pinned in ``MAIN_OUTPUTS`` (sha256);
+     least once (its -v log's stage seconds and spans line printed), and
+     its files must be byte-identical to the ones pinned in
+     ``MAIN_OUTPUTS`` (sha256);
   6. the library's exact-wog sweep at that size:
      ``MIEngine(al, EngineConfig(wog_fetch="full")).sweep(thr)`` at phase
      5's threshold launches B3 and B2 once per block-row (60) and K1
@@ -119,8 +119,8 @@ Phases (each raises on failure; nothing is caught):
      weighted fixed14, lazy wog, swept by the library at 0.084647 in three
      ways, in turns (dense full width, dense j-windows of 65536, codes
      storage in j-windows of 65536, then backwards): identical EdgeSets,
-     K1 and B2 once per item, B3 never, each sweep's seconds, items,
-     expansion seconds and peak memory; then ``cli.main`` with
+     K1 and B2 once per item, B3 never, each sweep's seconds, items and
+     peak memory (spans and counters of a ``recording``); then ``cli.main`` with
      ``--mi-values 1000000`` as it is ("auto", which must resolve to dense
      full-width rows) and with ``--onehot-storage codes --row-window
      65536``: byte-identical files;
@@ -137,13 +137,13 @@ Phases (each raises on failure; nothing is caught):
      (scripts/results_r5/bench_1m_width_final.json) each inside the
      +-1e-5 band of this sweep's count at the MI where this sweep reaches
      the reference's whole count 87,227,673, that MI's distance below
-     0.084647 printed; the sweep's seconds, column pairs/s, expansion
-     seconds, items, rows swept again and peak memory (fetch_s among its
-     phases); then the pipeline's device sort of its edges, its time and
+     0.084647 printed; the sweep's seconds, column pairs/s, its spans
+     rows, fetch and wog, items, rows swept again and peak memory; then
+     the pipeline's device sort of its edges, its time and
      peak memory with the engine held; the ARACNE kernel and the
      couplings writer on the sorted ~87M edges (times, peak memory, the
-     longest row), both held to the native copies on the first 2^24
-     sorted edges (the flags of that prefix run as a graph of its own,
+     longest row, the writer's spans), both held to the native copies on
+     the first 2^24 sorted edges (the flags of that prefix run as a graph of its own,
      the bytes' sha256 of the file's first chunk); the sort checked on the card
      (``check_desc_order``: the sweep's edges, mi and wog once each, in
      descending mi with ties by (ipos, jpos));
@@ -155,16 +155,6 @@ Phases (each raises on failure; nothing is caught):
      bytes and removes F; a copy of F resumed by one process does the
      same; the kill point, rows and edges saved, each resumed run's
      sweep_s and checkpoint_s, the launches and the wall times;
- 13. the bench (run after phase 11): ``python -m spydrpick_torch.bench`` in
-     a process of its own at its default shape (phase 5's alignment and
-     engine) with BENCH_E2E_RUNS=5 warm end-to-end runs; its JSON line must
-     name the card and power limit of phase 1 and the cuda backend, its
-     end-to-end edges and threshold must be phase 5's, every warm run must
-     launch K1 and B2 once per block-row (60), the ARACNE and formatter
-     kernels once each, and B3, B4 and B5 never, and
-     its sweep minimum must lie within 2x of phase 5's sweep_s; its
-     headline figures, its stage medians and the device's busy share of
-     its traced warm run (in (0, 1]) are printed.
 Ranks of phases 8, 9 and 12 are this script run as ``chip_smoke.py --rank
 ARGS``: ``cli.main(ARGS)``, then the launch counts as a JSON line; each
 has a time limit, and a rank that fails fails the phase.  Phase 12's
@@ -232,9 +222,9 @@ REFERENCE_LOG = "scripts/results_r5/bench_1m_width_final.json"  # the reference'
 # pairs paths summed their crosstables exactly (pairs_xtab) and took their
 # MI in float64: the tournament's threshold moved from 0.0066821575 to
 # 0.0066821375, 2e-10 from the float64 tournament's, which kept 405 more
-# edges at MI 0.006682, and 50 outliers rows' wog moved by 1e-6 (python -m
-# spydrpick_torch.host_ab lists them; PERF.md); the moves of the
-# sort, the fetch, ARACNE and the writer onto the card changed no byte
+# edges at MI 0.006682, and 50 outliers rows' wog moved by 1e-6 (PERF.md);
+# the moves of the sort, the fetch, ARACNE and the writer onto the card
+# changed no byte
 MAIN_OUTPUTS = {
     "bench.3000x30720.spydrpick_couplings.1-based.3101324edges":
         "481c49439a33bd34423ac602acf8824519a155a5315971a9059716acc7816a58",
@@ -243,10 +233,33 @@ MAIN_OUTPUTS = {
     "bench.outlier_nodes.fasta":
         "e560354968724f0cabe8466a3e84f7e67725b663f184e34499fd9e9921043a5e",
 }
-BENCH_E2E_RUNS = 5  # phase 13: warm end-to-end runs of the bench (PERF.md's median rule)
-BENCH_TIMEOUT = 300  # seconds for phase 13's bench process
-BENCH_STAGES = ("preprocess_s", "engine_build_s", "threshold_s", "sweep_s", "sort_s", "aracne_s",
-                "write_s")
+
+
+def bench_alignment(S: int, L: int, seed: int = 0, rng: np.random.Generator | None = None,
+                    weighted: bool = True):
+    """The bench.py generator (bench.py:158-169): uniform states, 5% gaps,
+    weights uniform in [0.1, 1), or None and no draw unless ``weighted``
+    (bench.py's ``BENCH_UNIT_WEIGHTS=1``).  It draws from ``rng`` when one
+    is given (bench.py draws its threshold pairs from the same generator
+    next), else from ``numpy.random.default_rng(seed)``."""
+    rng = np.random.default_rng(seed) if rng is None else rng
+    codes = rng.integers(0, 4, size=(S, L)).astype(np.uint8)
+    codes[rng.random((S, L)) < 0.05] = 4
+    return codes, (rng.random(S) * 0.9 + 0.1 if weighted else None)
+
+
+def write_inputs(td: str, name: str, codes: np.ndarray, weights: np.ndarray):
+    """``name``.fasta (one record per sample, states A C G T -) and
+    ``name``.weights in ``td``; returns both paths."""
+    fasta = os.path.join(td, f"{name}.fasta")
+    alphabet = np.frombuffer(b"ACGT-", dtype=np.uint8)
+    with open(fasta, "wb") as f:
+        for i, row in enumerate(codes):
+            f.write(b">s%d\n" % i + alphabet[row].tobytes() + b"\n")
+    wfile = os.path.join(td, f"{name}.weights")
+    with open(wfile, "w") as f:
+        f.write("\n".join(f"{x:.9f}" for x in weights))
+    return fasta, wfile
 
 
 def main_flags(fasta, wfile):
@@ -389,7 +402,6 @@ def phase_env():
         elif "registers" in line or "spill" in line:
             print(f"#   ptxas {kernel}: {line.split('info    :')[-1].strip()}")
     check_sass(lib)
-    return smi
 
 
 def k1_operands(S, TI, TJ, mode, rng, dev):
@@ -808,7 +820,7 @@ def select_compare(label, mi, wog, args, colmax, kw, n_time, n_plain):
     del got, want
     # every timed call appends to one store that holds them all; colmax
     # holds the row's maxima after the first call, so later calls make no
-    # colmax atomics (stage_profile times the sweep's own launches)
+    # colmax atomics (the benchmark's trace times the sweep's own launches)
     times = []
     for fn, reps in ((row_select, n_time), (row_select_plain, n_plain)):
         store = EdgeStore(max(1, (reps + 2) * n), wog is not None, mi.device)
@@ -851,6 +863,7 @@ def phase_b2(dev, fasta, wfile):
 
     from spydrpick_torch.engine.solver import EngineConfig, MIEngine
     from spydrpick_torch.ops.compact import row_select, row_select_plain
+    from spydrpick_torch.utils.profiling import recording
 
     rng = np.random.default_rng(2)
     worst = 0.0
@@ -908,15 +921,17 @@ def phase_b2(dev, fasta, wfile):
     small = MIEngine(al, dataclasses.replace(lazy.config, store_capacity=1 << 18), device=dev)
     del lazy
     launches = row_select.launches
-    tm = {}
-    got = small.sweep(thr, timings=tm)
+    rec = {}
+    with recording(rec):
+        got = small.sweep(thr)
     for f in ("ipos", "jpos", "mi", "mi_wog", "colmax"):
         if not np.array_equal(getattr(got, f), getattr(want, f)):
             raise AssertionError(f"B2 sweep with a 2^18-slot store: {f} differs")
-    if not tm["rerun_rows"]:
+    rerun = rec["counters"]["rows_reswept"]
+    if not rerun:
         raise AssertionError("B2 sweep with a 2^18-slot store swept no row again")
     print(f"# B2 lazy sweep from a 2^18-slot store: {got.n_edges} edges, arrays equal to the "
-          f"default store's; {tm['rerun_rows']} block-rows swept again, "
+          f"default store's; {rerun} block-rows swept again, "
           f"{row_select.launches - launches} row_select launches", flush=True)
     return worst, main
 
@@ -924,7 +939,6 @@ def phase_b2(dev, fasta, wfile):
 def phase_parity(dev, td, S=256, L=2048):
     from spydrpick_torch.engine.solver import EngineConfig, MIEngine
     from spydrpick_torch.pipeline import PipelineOptions, load_and_preprocess
-    from spydrpick_torch.stage_profile import bench_alignment, write_inputs
 
     codes, w = bench_alignment(S, L, seed=3)
     fasta, wfile = write_inputs(td, "parity", codes, w)
@@ -1025,12 +1039,10 @@ def phase_main(dev, td, fasta, wfile, S=S_BENCH, L=L_BENCH):
     print(f"# main path S={S} L={L} weighted fixed14: rc 0 in {wall:.2f} s; "
           f"threshold {thr:.6f}, {n_edges} edges, top couplings row {' '.join(first)}")
     print("# stage seconds: " + ", ".join(f"{k} {v}" for k, v in stages.items()))
-    print("# " + re.search(r"ARACNE: .*", text).group(0))
-    print("# " + re.search(r"preprocess phases: .*", text).group(0))
-    print("# " + re.search(r"tournament phases: .*", text).group(0))
+    print("# " + re.search(r"spans: .*", text).group(0))
     print(f"# peak device memory {peak / 2**30:.2f} GiB; launches {launches}", flush=True)
     print(f"# main path files byte-identical to the ones pinned (sha256): {digests}", flush=True)
-    return launches, out_dir, float(stages["sweep"]), thr, n_edges
+    return launches, out_dir, float(stages["sweep"])
 
 
 def pipeline_engine(dev, fasta, wfile):
@@ -1225,14 +1237,13 @@ def phase_host_kernels(dev, al, edges):
     kernels, the plain versions and the native copies, with bounds."""
     from spydrpick_torch.engine.aracne import DEFAULT_EDGE_THRESHOLD as EPS
     from spydrpick_torch.native import aracne_native, format_native
-    from spydrpick_torch.ops.aracne import aracne_flags, aracne_flags_plain
+    from spydrpick_torch.ops.aracne import aracne_flags, aracne_flags_plain, device_csr
     from spydrpick_torch.ops.format import (couplings_columns, format_couplings_rows,
                                             format_couplings_rows_plain)
 
     host, d = edges.sorted_on(dev)
     E = host.n_edges
-    tm = {}
-    flags = aracne_flags(d.ipos, d.jpos, d.mi, EPS, timings=tm)
+    flags = aracne_flags(d.ipos, d.jpos, d.mi, EPS)
     plain = aracne_flags_plain(d.ipos, d.jpos, d.mi, EPS)
     t0 = time.perf_counter()
     native = ~aracne_native.mark_indirect(host.ipos, host.jpos, host.mi, EPS)
@@ -1243,15 +1254,15 @@ def phase_host_kernels(dev, al, edges):
         raise AssertionError(f"ARACNE kernel: flags differ from the plain version's or the "
                              f"native owner-scan's (max |d| {a_err})")
     a_ms = cuda_time_ms(lambda: aracne_flags(d.ipos, d.jpos, d.mi, EPS), 5)
-    split = [{} for _ in range(3)]
-    for t in split:
-        aracne_flags(d.ipos, d.jpos, d.mi, EPS, timings=t)
-    csr_ms = 1e3 * float(np.median([t["csr_s"] for t in split]))
-    scan_ms = 1e3 * float(np.median([t["scan_s"] for t in split]))
+    n_nodes = int(host.jpos.max()) + 1
+    csr_ms = cuda_time_ms(lambda: device_csr(d.ipos, d.jpos, d.mi, n_nodes), 5)
+    scan_ms = a_ms - csr_ms  # aracne_flags: its checks, the CSR, then the scan kernel
+    deg = device_csr(d.ipos, d.jpos, d.mi, n_nodes).degrees
+    nodes, longest = int(torch.count_nonzero(deg)), int(deg.max())
     a_plain_ms = cuda_time_ms(lambda: aracne_flags_plain(d.ipos, d.jpos, d.mi, EPS), 1)
-    (a_bound, a_by), (scan_bound, _) = aracne_bounds(E, int(host.jpos.max()) + 1)
-    print(f"# 6c ARACNE kernel on phase 5's {E} sorted edges ({tm['nodes']} nodes, longest row "
-          f"{tm['max_degree']}): {int(got.sum())} direct, flags equal to the plain version's "
+    (a_bound, a_by), (scan_bound, _) = aracne_bounds(E, n_nodes)
+    print(f"# 6c ARACNE kernel on phase 5's {E} sorted edges ({nodes} nodes, longest row "
+          f"{longest}): {int(got.sum())} direct, flags equal to the plain version's "
           f"and the native owner-scan's; aracne_flags {a_ms:.3f} ms (CSR {csr_ms:.3f}, scan "
           f"{scan_ms:.3f}), {share(a_ms, a_bound)}; scan {share(scan_ms, scan_bound)}; plain "
           f"{a_plain_ms:.3f} ms; native owner-scan {native_a_ms:.3f} ms", flush=True)
@@ -1506,12 +1517,10 @@ def rank_main(argv, kill_after_saves: int | None = None) -> int:
     counts as the last line.  With ``kill_after_saves`` k the process
     ends at once, with KILLED_RC, right after its k-th checkpoint save
     returns (only process 0 saves)."""
-    from spydrpick_torch.bench import kernel_counters
-
-    fns = kernel_counters()
-    for fn in fns.values():
-        fn.launches = 0
     from spydrpick_torch import cli
+    from spydrpick_torch.pipeline import kernel_launches
+
+    before = kernel_launches()
 
     if kill_after_saves is not None:
         from spydrpick_torch.engine import checkpoint as ckpt_mod
@@ -1527,7 +1536,8 @@ def rank_main(argv, kill_after_saves: int | None = None) -> int:
 
         ckpt_mod.save = save_then_die
     rc = cli.main(argv)
-    print(json.dumps({"rc": rc, "launches": {k: fn.launches for k, fn in fns.items()}}))
+    print(json.dumps({"rc": rc, "launches": {k: n - before[k]
+                                             for k, n in kernel_launches().items()}}))
     return rc
 
 
@@ -1690,7 +1700,6 @@ def phase_rows_sharded_checkpoint(td, fasta, wfile, main_out, L=L_BENCH, every=8
 def phase_samples_sharded(dev, td, S=S_BENCH, L=L_SAMPLE_SHARDED):
     """Phase 9: --sharded --sample-shards 2 over two ranks against one
     process, on a cut of the bench alignment."""
-    from spydrpick_torch.stage_profile import bench_alignment, write_inputs
 
     codes, w = bench_alignment(S, L, seed=0)
     fasta, wfile = write_inputs(td, "samples", codes, w)
@@ -1742,31 +1751,34 @@ def phase_samples_sharded(dev, td, S=S_BENCH, L=L_SAMPLE_SHARDED):
 
 
 def wide_sweep(engine, thr):
-    """``engine.sweep(thr)`` with K1, B3 and B2 counted from 0: the edges
-    and (seconds, timings, peak device memory in GiB, launches)."""
-    from spydrpick_torch.bench import kernel_counters
+    """``engine.sweep(thr)`` recorded, with the kernels' launches counted:
+    the edges and (seconds, the sweep's record, peak device memory in
+    GiB, launches).  The record's "items" are the sweep's items
+    (``row_windows`` of its block-rows, none swept again counted)."""
+    from spydrpick_torch.pipeline import kernel_launches
+    from spydrpick_torch.utils.profiling import recording
 
-    fns = kernel_counters()
-    for fn in fns.values():
-        fn.launches = 0
+    before = kernel_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    tm = {}
+    rec = {}
     t0 = time.perf_counter()
-    edges = engine.sweep(thr, timings=tm)
-    torch.cuda.synchronize()
+    with recording(rec):
+        edges = engine.sweep(thr)
+        torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    return edges, (dt, tm, torch.cuda.max_memory_allocated() / 2**30,
-                   {k: fn.launches for k, fn in fns.items()})
+    rec["items"] = sum(len(engine.row_windows(r)) for r in range(0, engine.L, engine.tile))
+    return edges, (dt, rec, torch.cuda.max_memory_allocated() / 2**30,
+                   {k: n - before[k] for k, n in kernel_launches().items()})
 
 
-def check_item_launches(label, tm, launches):
+def check_item_launches(label, rec, launches):
     """A lazy sweep launches K1 and B2 once per item, B3 never (no row
     swept again: the default store holds these sweeps' edges)."""
-    n = tm["n_items"]
-    if (tm["rerun_rows"] or launches["mi_tile_single"] != n or launches["row_select"] != n
+    n, rerun = rec["items"], rec["counters"]["rows_reswept"]
+    if (rerun or launches["mi_tile_single"] != n or launches["row_select"] != n
             or launches["mi_tile_dual"]):
-        raise AssertionError(f"{label}: launches {launches}, {tm['rerun_rows']} rows swept "
+        raise AssertionError(f"{label}: launches {launches}, {rerun} rows swept "
                              f"again; expected {n} K1 and B2 (one per item), no B3")
 
 
@@ -1785,7 +1797,7 @@ def phase_wide_cut(dev, td, S=S_WIDE, L=L_CUT):
     storage codes --row-window 65536``, byte-identical."""
     from spydrpick_torch.engine.solver import EngineConfig, MIEngine
     from spydrpick_torch.pipeline import PipelineOptions, load_and_preprocess
-    from spydrpick_torch.stage_profile import bench_alignment, write_inputs
+    from spydrpick_torch.utils.profiling import summary
 
     codes, w = bench_alignment(S, L, seed=0)
     fasta, wfile = write_inputs(td, "wide", codes, w)
@@ -1799,22 +1811,22 @@ def phase_wide_cut(dev, td, S=S_WIDE, L=L_CUT):
         if (st.int8_mode != "fixed14" or st.onehot_codes != name.startswith("codes")
                 or bool(st.row_window) != name.endswith("windowed")):
             raise AssertionError(f"{name}: engine resolved {st}")
-        edges, (dt, tm, gib, launches) = wide_sweep(engine, WIDE_THRESHOLD)
+        edges, (dt, rec, gib, launches) = wide_sweep(engine, WIDE_THRESHOLD)
         del engine
         torch.cuda.empty_cache()
-        check_item_launches(name, tm, launches)
+        check_item_launches(name, rec, launches)
         if want is None:
             want = edges
         for f in ("ipos", "jpos", "mi", "mi_wog", "colmax"):
             if not np.array_equal(getattr(edges, f), getattr(want, f)):
                 raise AssertionError(f"wide cut, {name}: {f} differs from the dense full-width "
                                      "sweep's")
-        runs.setdefault(name, []).append((dt, tm, gib))
+        runs.setdefault(name, []).append((dt, rec, gib))
+        sec = {path: p["seconds"] for path, p in summary(rec["spans"]).items()}
         print(f"# wide cut S={S} L={L} {name} (row_window {st.row_window}, Lp {st.Lp}): "
               f"{edges.n_edges} edges equal to the dense full-width sweep's; sweep {dt:.3f} s, "
-              f"compute_s {tm['compute_s']:.3f}, fetch_s {tm['fetch_s']:.3f}, n_items "
-              f"{tm['n_items']}, expand_s {tm.get('expand_s', 0.0):.3f}, peak device memory "
-              f"{gib:.3f} GiB; launches {launches}", flush=True)
+              f"rows {sec['rows']:.3f} s, fetch {sec['fetch']:.3f} s, items {rec['items']}, "
+              f"peak device memory {gib:.3f} GiB; launches {launches}", flush=True)
     base = min(r[0] for r in runs["dense full width"])
     for name, rs in runs.items():
         best = min(r[0] for r in rs)
@@ -2028,28 +2040,33 @@ def wide_host_kernels(dev, al, ordered, d):
     from spydrpick_torch.io.writers import ROW_CHUNK, write_couplings_rows
     from spydrpick_torch.native import aracne_native, format_native
     from spydrpick_torch.ops.aracne import aracne_flags
+    from spydrpick_torch.utils.profiling import recording, summary
 
     E = len(d.mi)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    tm = {}
-    flags = aracne_flags(d.ipos, d.jpos, d.mi, EPS, timings=tm)
+    flags = aracne_flags(d.ipos, d.jpos, d.mi, EPS)
     torch.cuda.synchronize()
     a_s, a_gib = time.perf_counter() - t0, torch.cuda.max_memory_allocated(dev) / 2**30
     torch.cuda.reset_peak_memory_stats(dev)
-    sink, wt = HashSink(), {}
+    sink, rec = HashSink(), {}
     t0 = time.perf_counter()
-    write_couplings_rows(sink, d.ipos, d.jpos, d.mi, flags, al, 1, False, timings=wt)
+    with recording(rec):
+        write_couplings_rows(sink, d.ipos, d.jpos, d.mi, flags, al, 1, False)
     w_s, w_gib = time.perf_counter() - t0, torch.cuda.max_memory_allocated(dev) / 2**30
     got = flags.cpu().numpy()
     del flags
-    print(f"# 1M width: ARACNE kernel on the {E} sorted edges ({tm['nodes']} nodes, longest "
-          f"row {tm['max_degree']}) in {a_s:.3f} s (CSR {tm['csr_s']:.3f}, scan "
-          f"{tm['scan_s']:.3f}), {int(got.sum())} direct, peak device memory {a_gib:.3f} GiB "
-          f"(engine held); couplings rows {sink.n} bytes in {w_s:.3f} s (format "
-          f"{wt['format_s']:.3f}, copy {wt['copy_s']:.3f}, sink with sha256 "
-          f"{wt['file_s']:.3f}), peak {w_gib:.3f} GiB", flush=True)
+    n_nodes = int(d.jpos.max()) + 1
+    deg = (torch.bincount(d.ipos, minlength=n_nodes) + torch.bincount(d.jpos, minlength=n_nodes))
+    nodes, longest = int(torch.count_nonzero(deg)), int(deg.max())
+    del deg
+    sec = {path: p["seconds"] for path, p in summary(rec["spans"]).items()}
+    print(f"# 1M width: ARACNE kernel on the {E} sorted edges ({nodes} nodes, longest "
+          f"row {longest}) in {a_s:.3f} s, {int(got.sum())} direct, peak device memory "
+          f"{a_gib:.3f} GiB (engine held); couplings rows {sink.n} bytes in {w_s:.3f} s "
+          f"(format {sec['format']:.3f}, copy {sec['copy']:.3f}, sink with sha256 "
+          f"{sec['file']:.3f}), peak {w_gib:.3f} GiB", flush=True)
     n = min(E, ROW_CHUNK)
     sub = aracne_flags(d.ipos[:n], d.jpos[:n], d.mi[:n], EPS).cpu().numpy()
     ipos, jpos, mi = ordered.ipos[:n], ordered.jpos[:n], ordered.mi[:n]
@@ -2089,7 +2106,7 @@ def phase_full_width(dev, S=S_WIDE, L=L_WIDE):
     band there."""
     from spydrpick_torch.core.alignment import Alignment
     from spydrpick_torch.engine.solver import EngineConfig, MIEngine
-    from spydrpick_torch.stage_profile import bench_alignment
+    from spydrpick_torch.utils.profiling import summary
 
     codes, w = bench_alignment(S, L, seed=0)
     al = Alignment(codes, [f"s{i}" for i in range(S)], "width1m", np.arange(L), L, w)
@@ -2111,18 +2128,19 @@ def phase_full_width(dev, S=S_WIDE, L=L_WIDE):
 
     engine.row_edges = counted
     thr = WIDE_THRESHOLD
-    edges, (dt, tm, gib, launches) = wide_sweep(engine, thr - WIDE_MARGIN)
+    edges, (dt, rec, gib, launches) = wide_sweep(engine, thr - WIDE_MARGIN)
     again = sorted(i0 for i0, n in calls.items() if n > len(engine.row_windows(i0)))
     if not np.all(np.isfinite(edges.mi)) or not np.all(edges.ipos < edges.jpos):
         raise AssertionError("1M sweep: non-finite MI or an edge with ipos >= jpos")
-    if (len(again) != tm["rerun_rows"] or launches["mi_tile_single"] != sum(calls.values())
+    rerun = rec["counters"]["rows_reswept"]
+    if (len(again) != rerun or launches["mi_tile_single"] != sum(calls.values())
             or launches["row_select"] != sum(calls.values()) or launches["mi_tile_dual"]):
         raise AssertionError(f"1M sweep: launches {launches} for {sum(calls.values())} items "
-                             f"swept, {len(again)} rows swept again of {tm['rerun_rows']}")
+                             f"swept, {len(again)} rows swept again of {rerun}")
     engine.row_edges = row_edges
     engine.config = dataclasses.replace(engine.config, store_capacity=WIDE_STORE)
-    big, (dt_big, tm_big, gib_big, launches_big) = wide_sweep(engine, thr - WIDE_MARGIN)
-    check_item_launches(f"1M sweep from a {WIDE_STORE}-slot store", tm_big, launches_big)
+    big, (dt_big, rec_big, gib_big, launches_big) = wide_sweep(engine, thr - WIDE_MARGIN)
+    check_item_launches(f"1M sweep from a {WIDE_STORE}-slot store", rec_big, launches_big)
     for f in ("ipos", "jpos", "mi", "colmax"):
         if not np.array_equal(getattr(big, f), getattr(edges, f)):
             raise AssertionError(f"1M sweep: {f} from the grown store differs from the "
@@ -2173,15 +2191,16 @@ def phase_full_width(dev, S=S_WIDE, L=L_WIDE):
                                                   t_ref - WIDE_BAND, t_ref + WIDE_BAND))
     n_lo, n_hi = count(thr - WIDE_BAND), count(thr + WIDE_BAND)
     pairs = L * (L - 1) / 2
+    sec = {path: p["seconds"] for path, p in summary(rec["spans"]).items()}
     print(f"# 1M width S={S} L={L} codes, row_window {rw}, Lp {Lp}: engine built in "
           f"{build_s:.2f} s; sweep at {thr} - {WIDE_MARGIN}: {edges.n_edges} edges in {dt:.2f} s "
-          f"= {pairs / dt:.4g} column pairs/s, compute_s {tm['compute_s']:.2f}, fetch_s "
-          f"{tm['fetch_s']:.2f}, wog_s {tm['wog_s']:.2f} (pairs path {tm['wog_pairs_s']:.4f} for "
-          f"{tm['wog_candidates']} candidates), expand_s {tm['expand_s']:.2f}, n_items "
-          f"{tm['n_items']}, rows swept again {again}; peak device memory {gib:.3f} GiB; "
+          f"= {pairs / dt:.4g} column pairs/s, rows {sec['rows']:.2f} s, fetch "
+          f"{sec['fetch']:.2f} s, wog {sec['wog']:.2f} s (pairs path {sec['wog.pairs']:.4f} s), "
+          f"items {rec['items']}, rows swept again {again}; peak device memory {gib:.3f} GiB; "
           f"launches {launches}", flush=True)
+    big_rows_s = summary(rec_big["spans"])["rows"]["seconds"]
     print(f"# 1M width from a {WIDE_STORE}-slot store: the same EdgeSet in {dt_big:.2f} s, "
-          f"compute_s {tm_big['compute_s']:.2f}, no row swept again, peak device memory "
+          f"rows {big_rows_s:.2f} s, no row swept again, peak device memory "
           f"{gib_big:.3f} GiB", flush=True)
     print(f"# 1M width float64 recount of {len(rows)} whole block-rows {rows}: {n_pairs} pairs "
           f"above {thr - WIDE_MARGIN / 2}, every one stored, max |mi - float64| {dmax:.3e}; "
@@ -2207,65 +2226,7 @@ def phase_full_width(dev, S=S_WIDE, L=L_WIDE):
                              f"count, reference groups {off.tolist()} lie outside the "
                              f"+-{WIDE_BAND} band of its count (or that band reaches below "
                              f"the sweep's {thr - WIDE_MARGIN})")
-    return dt, tm, gib
-
-
-def phase_bench(smi, main_thr, main_edges, main_sweep_s, main_launches, L=L_BENCH):
-    """Phase 13: ``python -m spydrpick_torch.bench`` at its default shape
-    with BENCH_E2E_RUNS warm runs, held to phases 1 and 5."""
-    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
-    env["BENCH_E2E_RUNS"] = str(BENCH_E2E_RUNS)
-    t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, "-m", "spydrpick_torch.bench"], env=env,
-                         cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
-                         text=True, timeout=BENCH_TIMEOUT)
-    wall = time.perf_counter() - t0
-    last = (res.stdout.strip().splitlines() or [""])[-1]
-    if res.returncode != 0 or not last.startswith("{"):
-        raise AssertionError(f"bench: rc {res.returncode}\n{res.stdout[-3000:]}\n"
-                             f"{res.stderr[-3000:]}")
-    line = json.loads(last)
-    cfg, e2e = line["config"], line["config"]["end_to_end_s"]
-    name, limit = (x.strip() for x in smi.rsplit(",", 1))
-    want = {"backend": "cuda", "device": name, "power_limit": limit}
-    got = {k: cfg[k] for k in want}
-    if got != want:
-        raise AssertionError(f"bench ran on {got}, phase 1 saw {want}")
-    if (e2e["edges"], f"{e2e['mi_threshold']:.6f}") != (main_edges, f"{main_thr:.6f}"):
-        raise AssertionError(f"bench end to end: {e2e['edges']} edges at "
-                             f"{e2e['mi_threshold']}, phase 5: {main_edges} at {main_thr}")
-    n_rows = -(-L // TILE)
-    per_row = {"mi_tile_single": n_rows, "row_select": n_rows, "mi_tile_dual": 0,
-               "crosstab_tile": 0, "mi_epilogue": 0, "aracne_flags": 1,
-               "format_couplings_rows": 1, "column_state_counts": main_launches[
-                   "column_state_counts"], "pairs_xtab": main_launches["pairs_xtab"]}
-    if len(e2e["launches_all"]) != BENCH_E2E_RUNS or any(
-            run != per_row for run in e2e["launches_all"]):
-        raise AssertionError(f"bench warm runs launched {e2e['launches_all']}, expected "
-                             f"{per_row} each (the lead-in's as in phase 5)")
-    busy, tr = e2e["busy_share"], e2e["traced_run"]
-    if not isinstance(busy, float) or not 0 < busy <= 1:
-        raise AssertionError(f"bench: the traced warm run's busy share is {busy}")
-    if not main_sweep_s / 2 <= cfg["sweep_seconds"] <= 2 * main_sweep_s:
-        raise AssertionError(f"bench sweep {cfg['sweep_seconds']} s against phase 5's "
-                             f"sweep_s {main_sweep_s} s")
-    print(f"# bench S={cfg['samples']} L={cfg['loci']} {cfg['int8_mode']} on {cfg['device']}, "
-          f"{cfg['power_limit']}: {line['value']:.1f} column pairs/s (sweep "
-          f"{cfg['sweep_seconds']} s, {cfg['sweep_method']}; {cfg['edges']} edges at "
-          f"{cfg['threshold']}; sweep peak {cfg['sweep_peak_gib']} GiB); end to end median "
-          f"{e2e['total_s']} s of {e2e['total_s_all']} (cold {e2e['cold_total_s']} s), "
-          f"{e2e['edges']} edges at {e2e['mi_threshold']} as phase 5, peak GiB "
-          f"{e2e['peak_gib_all']}; K1 and B2 {n_rows} per warm run, the ARACNE and formatter "
-          f"kernels once, the counts {per_row['column_state_counts']} and the pairs' "
-          f"crosstables {per_row['pairs_xtab']} times as in phase 5; {wall:.1f} s", flush=True)
-    print("# bench stage medians (s): " + ", ".join(f"{k} {e2e[k]}" for k in BENCH_STAGES)
-          + f"; preprocess phases {e2e['preprocess_phases']}; threshold phases "
-          f"{e2e['threshold_phases']}; sweep phases "
-          f"{e2e['sweep_phases']}; aracne phases {e2e['aracne_phases']}; write phases "
-          f"{e2e['write_phases']}", flush=True)
-    print(f"# bench traced warm run: device busy share {busy} (wall {tr['wall_s']} s, busy "
-          f"{tr['busy_s']} s, lead-in {tr['lead_s']} s, longest gap {tr['max_gap_s']} s)",
-          flush=True)
+    return dt, rec, gib
 
 
 def main() -> int:
@@ -2279,9 +2240,8 @@ def main() -> int:
     t_start = time.perf_counter()
     dev = torch.device("cuda:0")
     torch.backends.cuda.matmul.allow_tf32 = False  # the f32 yardsticks and plain versions
-    from spydrpick_torch.stage_profile import bench_alignment, write_inputs
 
-    smi = phase_env()
+    phase_env()
     k1_err = phase_k1(dev)
     b3_err = phase_b3(dev)
     b4_err, b5_err = phase_split(dev)
@@ -2292,8 +2252,7 @@ def main() -> int:
         k1_main_err, k1, b3_main_err, b3, split_err, split_ms = phase_k1_main(dev, fasta, wfile)
         b2_err, b2 = phase_b2(dev, fasta, wfile)
         phase_parity(dev, td)
-        launches, main_out, main_sweep_s, main_thr, main_edges = phase_main(dev, td, fasta,
-                                                                             wfile)
+        launches, main_out, main_sweep_s = phase_main(dev, td, fasta, wfile)
         dual_launches, dual_err, lazy, al = phase_dual_sweep(dev, fasta, wfile)
         phase_sort(dev, lazy)
         host_err, host_ms = phase_host_kernels(dev, al, lazy)
@@ -2308,11 +2267,7 @@ def main() -> int:
         print(f"# phase 10 in {time.perf_counter() - t_wide:.1f} s", flush=True)
     t_wide = time.perf_counter()
     phase_full_width(dev)
-    print(f"# phase 11 in {time.perf_counter() - t_wide:.1f} s; chip_smoke so far "
-          f"{time.perf_counter() - t_start:.1f} s", flush=True)
-    t_bench = time.perf_counter()
-    phase_bench(smi, main_thr, main_edges, main_sweep_s, launches)
-    print(f"# phase 13 in {time.perf_counter() - t_bench:.1f} s; chip_smoke in "
+    print(f"# phase 11 in {time.perf_counter() - t_wide:.1f} s; chip_smoke in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

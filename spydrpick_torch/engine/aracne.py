@@ -11,7 +11,6 @@ common neighbours c.  The public flag is 1 for direct (kept) edges.
 from __future__ import annotations
 
 import os
-import time
 
 import numpy as np
 
@@ -33,20 +32,16 @@ def _csr_adjacency(ipos, jpos, n_nodes):
 
 
 def aracne_mark_indirect(ipos: np.ndarray, jpos: np.ndarray, mi: np.ndarray,
-                         threshold: float = DEFAULT_EDGE_THRESHOLD,
-                         timings: dict | None = None) -> np.ndarray:
+                         threshold: float = DEFAULT_EDGE_THRESHOLD) -> np.ndarray:
     """(E,) bool: True where the edge is INDIRECT (NumPy implementation)."""
     E = len(mi)
     if E == 0:
         return np.zeros(0, dtype=bool)
-    t0 = time.perf_counter()
     nodes, inv = np.unique(np.concatenate([ipos, jpos]), return_inverse=True)
     a = inv[:E]
     b = inv[E:]
     n_nodes = len(nodes)
-    t1 = time.perf_counter()
     indptr, nbr, eid = _csr_adjacency(a, b, n_nodes)
-    t2 = time.perf_counter()
     w = np.asarray(mi, dtype=np.float64)
     margin = w + max(threshold, 0.0)
 
@@ -95,45 +90,18 @@ def aracne_mark_indirect(ipos: np.ndarray, jpos: np.ndarray, mi: np.ndarray,
         workers = min(len(spans), os.cpu_count() or 1)
         with ThreadPoolExecutor(workers) as ex:
             list(ex.map(lambda s: _chunk(*s), spans))
-    if timings is not None:
-        timings["remap_s"] = t1 - t0
-        timings["adjacency_s"] = t2 - t1
-        timings["process_s"] = time.perf_counter() - t2
-        timings["nodes"] = int(n_nodes)
-        timings["chunks"] = len(spans)
     return indirect
 
 
 def run_aracne(ipos: np.ndarray, jpos: np.ndarray, mi: np.ndarray,
-               threshold: float = DEFAULT_EDGE_THRESHOLD, use_native: bool = True,
-               timings: dict | None = None, verbose_out=None) -> np.ndarray:
+               threshold: float = DEFAULT_EDGE_THRESHOLD,
+               use_native: bool = True) -> np.ndarray:
     """(E,) uint8 ARACNE flags: 1 = direct survivor, 0 = indirect."""
-    t = timings if timings is not None else {}
     if use_native:
         try:
             from spydrpick_torch.native import aracne_native
 
-            t0 = time.perf_counter()
-            ind = aracne_native.mark_indirect(ipos, jpos, mi, threshold)
-            t["native_s"] = time.perf_counter() - t0
-            t["edges"] = len(mi)
-            if verbose_out is not None:
-                print(f"ARACNE: {len(mi)} edges processed in "
-                      f"{t['native_s']:.2f}s (native kernel)",
-                      file=verbose_out, flush=True)
-            return (~ind).astype(np.uint8)
+            return (~aracne_native.mark_indirect(ipos, jpos, mi, threshold)).astype(np.uint8)
         except Exception:
             pass  # no C++ compiler or build failure: NumPy below
-    flags = (~aracne_mark_indirect(ipos, jpos, mi, threshold,
-                                   timings=t)).astype(np.uint8)
-    t["edges"] = len(mi)
-    if verbose_out is not None and len(mi):
-        print(
-            f"ARACNE: {len(mi)} edges / {t.get('nodes', 0)} nodes; "
-            f"remap {t.get('remap_s', 0.0):.2f}s, "
-            f"adjacency {t.get('adjacency_s', 0.0):.2f}s, "
-            f"process {t.get('process_s', 0.0):.2f}s "
-            f"({t.get('chunks', 1)} chunks)",
-            file=verbose_out, flush=True,
-        )
-    return flags
+    return (~aracne_mark_indirect(ipos, jpos, mi, threshold)).astype(np.uint8)

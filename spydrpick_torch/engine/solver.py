@@ -88,7 +88,7 @@ from spydrpick_torch.ops.mi import mi_from_crosstabs
 from spydrpick_torch.ops.mi_kernels import BW, mi_tile_dual, mi_tile_single, split_bf16, to_slab
 from spydrpick_torch.ops.pairs import pairs_xtab, pairs_xtab_plain as codes_xtab  # noqa: F401
 from spydrpick_torch.parallel.distributed import is_writer
-from spydrpick_torch.utils.profiling import count, phases, span
+from spydrpick_torch.utils.profiling import count, span
 
 # bytes of a pairs chunk's two (S, P) uint8 code gathers
 _PAIRS_BUDGET = 1 << 28
@@ -479,37 +479,6 @@ def expand_codes(codes_k: torch.Tensor, c0: int, n: int, dtype: torch.dtype,
     return out
 
 
-class _DeviceSeconds:
-    """Seconds of device work in start()/stop() spans: CUDA events on a
-    card, read once by ``total()``; the host clock on the CPU, where the
-    work is synchronous."""
-
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
-        self.spans: list = []
-        self.host_s = 0.0
-
-    def start(self):
-        if self.cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            return ev
-        return time.perf_counter()
-
-    def stop(self, begun) -> None:
-        if self.cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self.spans.append((begun, ev))
-        else:
-            self.host_s += time.perf_counter() - begun
-
-    def total(self) -> float:
-        if self.spans:
-            self.spans[-1][1].synchronize()
-        return self.host_s + sum(a.elapsed_time(b) for a, b in self.spans) * 1e-3
-
-
 def _wog_effective(data: DeviceData, st: SweepStatics, mi: torch.Tensor,
                   wog: torch.Tensor, i0: int, j0: int | None = None) -> torch.Tensor:
     """The reference's gap-afflicted defaulting for block-row i0 over the
@@ -595,7 +564,6 @@ class MIEngine:
         self._sdtype = torch.int8 if st.int8_mode != "off" else torch.bfloat16
         codes_k = codes_k_major(self.data.codes, self._sdtype)
         Sp = codes_k.shape[1]
-        self._expand_s = _DeviceSeconds(self.device)
         if st.onehot_codes:
             self._codes_k, self._onehot_k = codes_k, None
             self._slab_j = torch.empty(((st.row_window or st.Lp) * N_STATES, Sp),
@@ -638,14 +606,10 @@ class MIEngine:
     def _slab_cols(self, c0: int, n: int, out: torch.Tensor | None = None) -> torch.Tensor:
         """The (n*5, Sp) K-major one-hot rows of columns [c0, c0 + n): a
         view of the dense copy, or in codes storage their expansion
-        (``expand_codes``, into ``out`` when given; timed into
-        ``_expand_s``)."""
+        (``expand_codes``, into ``out`` when given)."""
         if self._onehot_k is not None:
             return self._onehot_k[c0 * N_STATES:(c0 + n) * N_STATES]
-        t = self._expand_s.start()
-        x = expand_codes(self._codes_k, c0, n, self._sdtype, out)
-        self._expand_s.stop(t)
-        return x
+        return expand_codes(self._codes_k, c0, n, self._sdtype, out)
 
     def row_operands(self, i0: int):
         """(xi_hi, xi_lo or None, pass_mults, acc_scale): the i-side
@@ -750,7 +714,7 @@ class MIEngine:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t
 
-    def _pairs(self, fn, blocks, device_s: "_DeviceSeconds | None" = None):
+    def _pairs(self, fn, blocks):
         """Run a pairs core over the pairs of ``blocks``, an iterable of
         (ipos, jpos) host arrays read as one stream, with their
         crosstables from ``pairs_table``; returns the per-pair outputs on
@@ -760,18 +724,14 @@ class MIEngine:
         pair's table does not depend on its chunk or its place in it while
         the weights lie in ``pairs_xtab``'s exact range (ops/pairs.py);
         outside it a table may move by one f32 ulp with them, and a
-        stream's values are then those of its pairs in one block.
-        ``device_s`` receives each chunk's device work as one span; the
+        stream's values are then those of its pairs in one block.  The
         counter pair_chunks counts the chunks."""
         c = self._pairs_chunk
         outs = []
         ii = jj = torch.zeros(0, dtype=torch.int64, device=self.device)
 
         def run(i, j):
-            t = None if device_s is None else device_s.start()
             outs.append(fn(self.data, self.statics, i, j, self.pairs_table(i, j)))
-            if device_s is not None:
-                device_s.stop(t)
             count("pair_chunks")
 
         for ib, jb in blocks:
@@ -795,22 +755,15 @@ class MIEngine:
         wog = self._pairs(lambda *a: pairs_mi_dual_core(*a)[1], [(ipos, jpos)])
         return wog.cpu().numpy().astype(np.float64)
 
-    def pair_quantiles(self, blocks, iters: int, n_valid: int, k: int,
-                       timings: dict | None = None) -> np.ndarray:
+    def pair_quantiles(self, blocks, iters: int, n_valid: int, k: int) -> np.ndarray:
         """(iters,) float64: for each of ``iters`` consecutive samples of
         ``n_valid`` pairs, the ascending order statistic ``k`` of their
         MI — the threshold tournament, with only ``iters`` floats coming
         back to the host.  ``blocks``: the pairs as (ipos, jpos) host
         arrays, in any blocks (``_pairs``), e.g. each sample as it is
-        drawn.  ``timings`` receives device_s: the device seconds of the
-        chunks' gathers, crosstables and MI (CUDA events on a card, the
-        host clock on the CPU)."""
-        dev_s = _DeviceSeconds(self.device)
-        mi = self._pairs(pairs_mi_core, blocks, dev_s)
-        out = pairs_quantile_core(mi, iters, n_valid, k).cpu().numpy().astype(np.float64)
-        if timings is not None:
-            timings["device_s"] = dev_s.total()
-        return out
+        drawn."""
+        mi = self._pairs(pairs_mi_core, blocks)
+        return pairs_quantile_core(mi, iters, n_valid, k).cpu().numpy().astype(np.float64)
 
     # ------------------------------------------------------------------ #
     def new_store(self) -> EdgeStore:
@@ -831,7 +784,7 @@ class MIEngine:
 
     def sweep_rows(self, rows: list[int], threshold: float, colmax: torch.Tensor,
                    store: EdgeStore, progress=None, saves=frozenset(), on_save=None,
-                   agree=None) -> int:
+                   agree=None) -> None:
         """Sweep block-rows ``rows``, in that order, each as its items
         (``row_windows``, one ``row_edges`` each), into ``colmax`` and
         ``store``, reading the store's count only at checks (a row's last
@@ -845,10 +798,9 @@ class MIEngine:
         its rows (dt: the seconds since the last check, shared evenly by
         its rows), then ``on_save(k)`` when k is in ``saves``.
         ``agree(n) -> n``: the largest count over the ranks that must
-        re-run rows together (a samples group); identity when None.
-        Returns the rows swept again after an overflow.  Each check is the
-        span check; the counters sweep_items and rows_reswept count the
-        items swept (reruns included) and the rows swept again."""
+        re-run rows together (a samples group); identity when None.  Each
+        check is the span check; the counters sweep_items and rows_reswept
+        count the items swept (reruns included) and the rows swept again."""
         T, L = self.tile, self.L
         most = max(1, L * (L - 1) // 2)
         ends = torch.zeros(len(rows), dtype=torch.int64, device=self.device)
@@ -887,10 +839,9 @@ class MIEngine:
             first, t_last = k + 1, time.perf_counter()
         count("sweep_items", items)
         count("rows_reswept", rerun)
-        return rerun
 
     def sweep(self, threshold: float, progress=None, checkpoint_path: str | None = None,
-              checkpoint_every: int = 16, timings: dict | None = None) -> EdgeSet:
+              checkpoint_every: int = 16) -> EdgeSet:
         """All-pairs upper-triangle sweep storing edges with mi > threshold.
 
         ``progress``: optional callable(row_start, row_end, n_edges, dt) per
@@ -906,71 +857,55 @@ class MIEngine:
         the whole alignment, every process may resume from the snapshot
         and only process 0 saves and deletes it
         (``parallel.distributed.is_writer``).
-        ``timings``: optional dict that receives compute_s (snapshot
-        load, block-row loop and saves), checkpoint_s (the saves), fetch_s (the
-        remaining edges and colmax to the host), wog_s (lazy wo-gaps
-        resolve), n_rows (block-rows swept by this call), n_items (their
-        items, ``row_windows``), rerun_rows (block-rows swept again after a
-        store overflow) and, in codes storage, expand_s (the device seconds
-        of the operands' expansions, reruns included): the first four are
-        the seconds of the spans rows, rows.save, fetch and wog.  The
-        counter edges_stored counts the edges returned."""
+        Spans: rows (snapshot load, block-row loop and saves; rows.save,
+        the saves), fetch (the remaining edges and colmax to the host) and
+        wog (lazy wo-gaps resolve).  The counter edges_stored counts the
+        edges returned."""
         st, dev = self.statics, self.device
         L, Lp = st.L, st.Lp
         synchronize(dev)
-        self._expand_s = _DeviceSeconds(dev)
-        with phases(timings) as mark:
-            with span("rows"):
-                key = ckpt_mod.params_key(st, threshold)
-                # the host's edges: a resumed snapshot's, then each save's new rows
-                host = ckpt_mod.load(checkpoint_path, key) if checkpoint_path else None
-                if host is None:
-                    host = ckpt_mod.SweepCheckpoint(key, set(), np.full(L, -np.inf),
-                                                    [], [], [], [])
-                colmax = torch.full((Lp,), -np.inf, dtype=torch.float32, device=dev)
-                colmax[:L] = torch.from_numpy(host.colmax).to(device=dev, dtype=torch.float32)
-                todo = [i0 for i0 in range(0, L, st.tile) if i0 not in host.done_rows]
-                store = self.new_store()
-                every = max(1, checkpoint_every)
-                writer = bool(checkpoint_path) and is_writer()
-                saves = (frozenset(range(every - 1, len(todo) - 1, every)) if writer
-                         else frozenset())
-                saved = 0  # store slots already on the host
+        with span("rows"):
+            key = ckpt_mod.params_key(st, threshold)
+            # the host's edges: a resumed snapshot's, then each save's new rows
+            host = ckpt_mod.load(checkpoint_path, key) if checkpoint_path else None
+            if host is None:
+                host = ckpt_mod.SweepCheckpoint(key, set(), np.full(L, -np.inf),
+                                                [], [], [], [])
+            colmax = torch.full((Lp,), -np.inf, dtype=torch.float32, device=dev)
+            colmax[:L] = torch.from_numpy(host.colmax).to(device=dev, dtype=torch.float32)
+            todo = [i0 for i0 in range(0, L, st.tile) if i0 not in host.done_rows]
+            store = self.new_store()
+            every = max(1, checkpoint_every)
+            writer = bool(checkpoint_path) and is_writer()
+            saves = (frozenset(range(every - 1, len(todo) - 1, every)) if writer
+                     else frozenset())
+            saved = 0  # store slots already on the host
 
-                def save(k):
-                    nonlocal saved
-                    with span("save"):
-                        saved = self._edges_to_host(store, saved, todo, host)
-                        host.done_rows.update(todo[:k + 1])
-                        host.colmax = colmax[:L].cpu().numpy().astype(np.float64)
-                        ckpt_mod.save(checkpoint_path, host)
+            def save(k):
+                nonlocal saved
+                with span("save"):
+                    saved = self._edges_to_host(store, saved, todo, host)
+                    host.done_rows.update(todo[:k + 1])
+                    host.colmax = colmax[:L].cpu().numpy().astype(np.float64)
+                    ckpt_mod.save(checkpoint_path, host)
 
-                rerun = self.sweep_rows(todo, threshold, colmax, store, progress, saves, save)
-                synchronize(dev)
-            with span("fetch"):
-                self._edges_to_host(store, saved, todo, host)
-                colmax_h = colmax[:L].cpu().numpy().astype(np.float64)
-                cat = ckpt_mod.concat
-                s_i, s_j = cat(host.ipos, np.int64), cat(host.jpos, np.int64)
-                s_m = cat(host.mi, np.float64)
-                s_w = None if st.wog_lazy else cat(host.mi_wog, np.float64)
-            with span("wog"):
-                if st.wog_lazy:
-                    # snapshot and fresh rows alike hold mi placeholders: resolve the
-                    # candidates of the final colmax over the whole edge set
-                    s_w = self._resolve_deferred_wog(s_m, s_i, s_j, colmax_h, timings)
-                if writer and os.path.exists(checkpoint_path):
-                    os.unlink(checkpoint_path)  # run completed; stale resume data
+            self.sweep_rows(todo, threshold, colmax, store, progress, saves, save)
+            synchronize(dev)
+        with span("fetch"):
+            self._edges_to_host(store, saved, todo, host)
+            colmax_h = colmax[:L].cpu().numpy().astype(np.float64)
+            cat = ckpt_mod.concat
+            s_i, s_j = cat(host.ipos, np.int64), cat(host.jpos, np.int64)
+            s_m = cat(host.mi, np.float64)
+            s_w = None if st.wog_lazy else cat(host.mi_wog, np.float64)
+        with span("wog"):
+            if st.wog_lazy:
+                # snapshot and fresh rows alike hold mi placeholders: resolve the
+                # candidates of the final colmax over the whole edge set
+                s_w = self._resolve_deferred_wog(s_m, s_i, s_j, colmax_h)
+            if writer and os.path.exists(checkpoint_path):
+                os.unlink(checkpoint_path)  # run completed; stale resume data
         count("edges_stored", len(s_i))
-        if timings is not None:
-            timings.update(compute_s=mark.seconds("rows"),
-                           checkpoint_s=mark.seconds("rows.save"),
-                           fetch_s=mark.seconds("fetch"), wog_s=mark.seconds("wog"),
-                           n_rows=len(todo),
-                           n_items=sum(len(self.row_windows(r)) for r in todo),
-                           rerun_rows=rerun)
-            if st.onehot_codes:
-                timings["expand_s"] = self._expand_s.total()
         return EdgeSet(ipos=s_i, jpos=s_j, mi=s_m, mi_wog=s_w, colmax=colmax_h)
 
     def _edges_to_host(self, store: EdgeStore, lo: int, rows: list[int],
@@ -989,13 +924,12 @@ class MIEngine:
             host.mi_wog.append(got[2] if store.wog is None else got[3])
         return hi
 
-    def _resolve_deferred_wog(self, s_m, s_i, s_j, colmax, timings: dict | None = None):
+    def _resolve_deferred_wog(self, s_m, s_i, s_j, colmax):
         """wog for the edges at or above the outlier threshold of the final
         colmax (the only wog values the output surface reads,
         SpydrPick.hpp:100-124); mi for every other edge (solver.py:1862).
-        ``timings`` receives wog_candidates and wog_pairs_s (the seconds of
-        the span pairs, the pairs path; the rest of the resolve is host
-        work)."""
+        The span pairs is the pairs path; the rest of the resolve is host
+        work."""
         from spydrpick_torch.engine.outliers import outlier_thresholds
 
         s_w = s_m.copy()
@@ -1009,11 +943,7 @@ class MIEngine:
             # move by one f32 ulp with its place in a chunk (ops/pairs.py);
             # inside that range the order changes no bit
             cand = cand[np.lexsort((s_j[cand], s_i[cand]))]
-        with phases(timings) as mark:
-            with span("pairs"):
-                if cand.size:
-                    s_w[cand] = self.pair_wog(s_i[cand], s_j[cand])
-        if timings is not None:
-            timings["wog_candidates"] = int(cand.size)
-            timings["wog_pairs_s"] = mark.seconds("pairs")
+        with span("pairs"):
+            if cand.size:
+                s_w[cand] = self.pair_wog(s_i[cand], s_j[cand])
         return s_w

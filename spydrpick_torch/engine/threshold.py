@@ -17,9 +17,8 @@ stream and its chunks are those of drawing every iteration first, so the
 threshold is the same bit for bit.  Spans (``utils/profiling.py``):
 draw (the worker's seconds in ``sample_pairs``, one per iteration, on
 the thread "draws_0") and wait_draws (the caller's thread blocked on a
-draw, one per iteration).  ``determine_mi_threshold(timings=)`` says which
-of the two sets the stage's pace: draws_s (the draws' seconds) and
-device_s (the chunks' device work, ``MIEngine.pair_quantiles``).
+draw, one per iteration): the two say which of them sets the stage's
+pace.
 """
 
 from __future__ import annotations
@@ -28,7 +27,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from spydrpick_torch.utils.profiling import count, current_path, phases, span
+from spydrpick_torch.utils.profiling import count, current_path, span
 
 
 def determine_threshold_pairs(threshold_pairs: int, possible_pairs: int,
@@ -67,18 +66,12 @@ def sample_pairs(rng: np.random.Generator, n_pairs: int,
 
 def determine_mi_threshold(engine, n_values: int, threshold_pairs: int = 0,
                            iterations: int = 10, seed: int = 42,
-                           verbose_out=None, timings: dict | None = None) -> float:
+                           verbose_out=None) -> float:
     """Estimate the MI save threshold; ``engine`` is a
-    spydrpick_torch.engine.solver.MIEngine.  ``timings`` receives draws_s
-    (the draws' seconds on the worker thread), device_s (the pair
-    chunks' device seconds), pairs (drawn in all) and total_s.  The counter
-    pairs_drawn counts the pairs drawn."""
-    with phases(timings) as mark:
-        thresholds, pairs_n, device_s = _tournament(engine, n_values, threshold_pairs,
-                                                    iterations, seed, verbose_out)
-    if timings is not None:
-        timings.update(draws_s=mark.seconds("draw"), device_s=device_s,
-                       pairs=pairs_n * iterations, total_s=mark.seconds())
+    spydrpick_torch.engine.solver.MIEngine.  The counter pairs_drawn counts
+    the pairs drawn."""
+    thresholds, _ = _tournament(engine, n_values, threshold_pairs, iterations, seed,
+                                verbose_out)
     if verbose_out is not None:
         for it, t in enumerate(thresholds):
             print(f"spydrpick-torch: {it + 1:2d}/{iterations} threshold "
@@ -90,9 +83,8 @@ def determine_mi_threshold(engine, n_values: int, threshold_pairs: int = 0,
 
 
 def _tournament(engine, n_values: int, threshold_pairs: int, iterations: int, seed: int,
-                verbose_out) -> tuple[np.ndarray, int, float]:
-    """(each iteration's threshold, pairs per iteration, the chunks' device
-    seconds)."""
+                verbose_out) -> tuple[np.ndarray, int]:
+    """(each iteration's threshold, pairs per iteration)."""
     n_loci = engine.L
     possible_pairs = n_loci * (n_loci - 1) // 2
     percentile = 1.0 - float(n_values) / possible_pairs
@@ -123,17 +115,16 @@ def _tournament(engine, n_values: int, threshold_pairs: int, iterations: int, se
                 got = d.result()
             yield got
 
-    quantile_t: dict = {}
     # one worker: the iterations are drawn in order, as one stream
     with ThreadPoolExecutor(max_workers=1, thread_name_prefix="draws") as pool:
         draws = [pool.submit(draw) for _ in range(iterations)]
         try:
             thresholds = engine.pair_quantiles(arrived(draws), iterations, pairs_n,
-                                               threshold_idx, timings=quantile_t)
+                                               threshold_idx)
         finally:
             for d in draws:
                 d.cancel()
-    return thresholds, pairs_n, quantile_t["device_s"]
+    return thresholds, pairs_n
 
 
 def default_mi_values(n_loci: int, mi_values_flag: int) -> int:

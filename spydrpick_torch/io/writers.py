@@ -28,7 +28,7 @@ from spydrpick_torch.core.alignment import Alignment
 from spydrpick_torch.core.distance import genome_distance
 from spydrpick_torch.device import synchronize
 from spydrpick_torch.ops.format import couplings_columns, format_couplings_rows
-from spydrpick_torch.utils.profiling import count, phases, span
+from spydrpick_torch.utils.profiling import count, span
 
 ROW_CHUNK = 1 << 24  # rows formatted at a time: bounds the device scratch
 
@@ -92,17 +92,15 @@ def write_couplings(
 
 def write_couplings_rows(f, ipos: torch.Tensor, jpos: torch.Tensor, mi: torch.Tensor,
                          flags: torch.Tensor, alignment: Alignment, output_base: int = 1,
-                         linear_genome: bool = False, timings: dict | None = None,
-                         chunk: int = ROW_CHUNK) -> None:
+                         linear_genome: bool = False, chunk: int = ROW_CHUNK) -> None:
     """The couplings file's rows (``write_couplings``'s bytes) from the
     sorted edges as tensors on one device: ipos, jpos int64, mi f64, flags
     uint8.  Per chunk of rows, p1, p2 and dist are computed and the rows
     formatted on that device (``format_couplings_rows``); on a card the
     bytes cross once into a pinned host buffer, and the file's binary
     buffer writes them with no further copy.  Per chunk the spans format,
-    copy and file; ``timings`` receives their seconds summed over the
-    chunks (format_s, copy_s, file_s).  The counter bytes_written.couplings
-    counts the bytes handed to the file."""
+    copy and file.  The counter bytes_written.couplings counts the bytes
+    handed to the file."""
     dev = mi.device
     out = f
     if hasattr(f, "buffer"):  # a text file: write its bytes underneath
@@ -110,30 +108,27 @@ def write_couplings_rows(f, ipos: torch.Tensor, jpos: torch.Tensor, mi: torch.Te
         out = f.buffer
     trans = torch.from_numpy(np.ascontiguousarray(alignment.translation, dtype=np.int64)).to(dev)
     host = None
-    with phases(timings) as mark:
-        for lo in range(0, len(mi), chunk):
-            hi = min(len(mi), lo + chunk)
-            with span("format"):
-                p1, p2, dist = couplings_columns(ipos[lo:hi], jpos[lo:hi], trans, output_base,
-                                                 alignment.n_original_positions, linear_genome)
-                data = format_couplings_rows(p1, p2, dist, flags[lo:hi], mi[lo:hi])
-                del p1, p2, dist
+    for lo in range(0, len(mi), chunk):
+        hi = min(len(mi), lo + chunk)
+        with span("format"):
+            p1, p2, dist = couplings_columns(ipos[lo:hi], jpos[lo:hi], trans, output_base,
+                                             alignment.n_original_positions, linear_genome)
+            data = format_couplings_rows(p1, p2, dist, flags[lo:hi], mi[lo:hi])
+            del p1, p2, dist
+            synchronize(dev)
+        with span("copy"):
+            if dev.type == "cuda":
+                if host is None or len(host) < len(data):
+                    host = torch.empty(len(data), dtype=torch.uint8, pin_memory=True)
+                host[:len(data)].copy_(data, non_blocking=True)
                 synchronize(dev)
-            with span("copy"):
-                if dev.type == "cuda":
-                    if host is None or len(host) < len(data):
-                        host = torch.empty(len(data), dtype=torch.uint8, pin_memory=True)
-                    host[:len(data)].copy_(data, non_blocking=True)
-                    synchronize(dev)
-                    buf = host[:len(data)].numpy()
-                else:
-                    buf = data.numpy()
-                del data
-            with span("file"):
-                out.write(memoryview(buf))
-            count("bytes_written.couplings", len(buf))
-    if timings is not None:
-        timings.update({f"{k}_s": mark.seconds(k) for k in ("format", "copy", "file")})
+                buf = host[:len(data)].numpy()
+            else:
+                buf = data.numpy()
+            del data
+        with span("file"):
+            out.write(memoryview(buf))
+        count("bytes_written.couplings", len(buf))
 
 
 def write_outliers(

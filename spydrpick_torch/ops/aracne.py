@@ -22,7 +22,6 @@ reference.  Both refuse an edge set that repeats a pair.
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 import torch
@@ -68,22 +67,14 @@ def _margin(threshold: float) -> float:
     return float(threshold) if threshold > 0 else 0.0
 
 
-def _csr_stats(csr: DeviceCSR, timings: dict | None, E: int) -> None:
-    if timings is not None:
-        timings["edges"] = E
-        timings["nodes"] = int(torch.count_nonzero(csr.degrees))
-        timings["max_degree"] = int(csr.degrees.max()) if E else 0
-
-
 def aracne_flags_plain(ipos: torch.Tensor, jpos: torch.Tensor, mi: torch.Tensor,
-                       threshold: float = DEFAULT_EDGE_THRESHOLD, timings: dict | None = None,
+                       threshold: float = DEFAULT_EDGE_THRESHOLD,
                        flat_budget: int = FLAT_BUDGET) -> torch.Tensor:
     """(E,) uint8 flags, 1 = direct, on the edges' device: for each edge
     (u, v), u the endpoint of smaller degree, every neighbour c of u is
     looked up in v's row by one ``searchsorted`` over the CSR keys, in
     chunks of at most ``flat_budget`` candidates (each edge whole); the
     best min(w_uc, w_vc) is compared with w + max(threshold, 0)."""
-    t0 = time.perf_counter()
     dev = mi.device
     E = len(mi)
     if E == 0:
@@ -91,7 +82,6 @@ def aracne_flags_plain(ipos: torch.Tensor, jpos: torch.Tensor, mi: torch.Tensor,
     a, b = ipos.to(torch.int64), jpos.to(torch.int64)
     w = mi.to(torch.float64)
     csr = device_csr(a, b, w, int(torch.maximum(a.max(), b.max())) + 1)
-    t1 = time.perf_counter()
     deg = csr.degrees
     swap = deg[a] > deg[b]
     u, v = torch.where(swap, b, a), torch.where(swap, a, b)
@@ -120,10 +110,6 @@ def aracne_flags_plain(ipos: torch.Tensor, jpos: torch.Tensor, mi: torch.Tensor,
         best.scatter_reduce_(0, rep, m, "amax")
         indirect[start:end] = best >= need[start:end]
         start = end
-    if timings is not None:
-        _csr_stats(csr, timings, E)
-        t2 = time.perf_counter()
-        timings.update(csr_s=t1 - t0, scan_s=t2 - t1, total_s=t2 - t0)
     return (~indirect).to(torch.uint8)
 
 
@@ -149,39 +135,25 @@ def _check(ipos: torch.Tensor, jpos: torch.Tensor, mi: torch.Tensor) -> int:
 
 
 def aracne_flags(ipos: torch.Tensor, jpos: torch.Tensor, mi: torch.Tensor,
-                 threshold: float = DEFAULT_EDGE_THRESHOLD,
-                 timings: dict | None = None) -> torch.Tensor:
+                 threshold: float = DEFAULT_EDGE_THRESHOLD) -> torch.Tensor:
     """(E,) uint8 ARACNE flags (1 = direct) of the edges ipos < jpos
-    (int64) with weights mi (f64), on their device (module docstring).
-    ``timings`` receives csr_s and scan_s (CUDA events on a card), total_s,
-    edges, nodes (of nonzero degree) and max_degree."""
+    (int64) with weights mi (f64), on their device (module docstring)."""
     if mi.device.type == "cpu":
-        return aracne_flags_plain(ipos, jpos, mi, threshold, timings)
+        return aracne_flags_plain(ipos, jpos, mi, threshold)
     if not mi.is_cuda:
         raise ValueError(f"aracne_flags: unsupported device {mi.device}")
-    t0 = time.perf_counter()
     n_nodes = _check(ipos, jpos, mi)
     E = len(mi)
     out = torch.empty(E, dtype=torch.uint8, device=mi.device)
     if E == 0:
         return out
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-    ev[0].record()
     csr = device_csr(ipos, jpos, mi, n_nodes)
-    ev[1].record()
     rc = cuda_build.load().spk_aracne_scan(
         ipos.data_ptr(), jpos.data_ptr(), mi.data_ptr(), E, csr.offs.data_ptr(),
         csr.nbr.data_ptr(), csr.wadj.data_ptr(), _margin(threshold), out.data_ptr(),
         torch.cuda.current_stream(mi.device).cuda_stream)
     cuda_build.check(rc, "aracne_flags")
     aracne_flags.launches += 1
-    ev[2].record()
-    if timings is not None:
-        _csr_stats(csr, timings, E)
-        ev[2].synchronize()
-        timings.update(csr_s=ev[0].elapsed_time(ev[1]) / 1e3,
-                       scan_s=ev[1].elapsed_time(ev[2]) / 1e3,
-                       total_s=time.perf_counter() - t0)
     return out
 
 

@@ -62,7 +62,7 @@ from spydrpick_torch.engine.solver import (
 )
 from spydrpick_torch.ops.mi_kernels import crosstab_tile, mi_epilogue, xtab_to_f32
 from spydrpick_torch.ops.pairs import pairs_xtab
-from spydrpick_torch.utils.profiling import count, phases, span
+from spydrpick_torch.utils.profiling import count, span
 
 # j-columns per B4 launch (a multiple of BW): bounds a block-row's
 # crosstable, its f32 copy and each all-reduce to 2560 x 40960 cells at
@@ -265,8 +265,7 @@ def load_snapshot(path: str | None, key: str, L: int,
 
 
 def sharded_sweep(engine: MIEngine, threshold: float, mesh: DeviceMesh, progress=None,
-                  checkpoint_path: str | None = None, checkpoint_every: int = 16,
-                  timings: dict | None = None) -> EdgeSet:
+                  checkpoint_path: str | None = None, checkpoint_every: int = 16) -> EdgeSet:
     """All-pairs sweep over the mesh; every rank returns the same
     ``EdgeSet``, equal to ``MIEngine.sweep``'s on one device (bit for bit
     in the int8 modes; bf16 crosstables of sample shards sum in another
@@ -286,11 +285,9 @@ def sharded_sweep(engine: MIEngine, threshold: float, mesh: DeviceMesh, progress
     gathers each rank's store slots since its last save (its checks have
     re-swept any overflow by then, so no saved row is truncated), and
     process 0 writes the rows that every rank has completed.  Process 0
-    deletes the file when the sweep completes.
-    ``timings`` as for ``MIEngine.sweep``: compute_s, checkpoint_s,
-    fetch_s, wog_s (the spans rows, rows.save, fetch and wog), n_rows and
-    rerun_rows, over this rank's rows; the counter edges_stored counts the
-    edges returned."""
+    deletes the file when the sweep completes.  Spans rows (with
+    rows.save), fetch and wog, as for ``MIEngine.sweep``; the counter
+    edges_stored counts the edges returned."""
     if axis_size(mesh, "samples") > 1 and not isinstance(engine, ShardedEngineView):
         raise ValueError("a mesh with sample shards sweeps a ShardedEngineView")
     rows_group = mesh.get_group("rows")
@@ -298,75 +295,67 @@ def sharded_sweep(engine: MIEngine, threshold: float, mesh: DeviceMesh, progress
     st, dev = engine.statics, engine.device
     T, L, Lp = st.tile, st.L, st.Lp
     synchronize(dev)
-    with phases(timings) as mark:
-        with span("rows"):
-            snap = load_snapshot(checkpoint_path, checkpoint_key(engine, threshold, mesh), L,
-                                 dev)
-            colmax = torch.full((Lp,), -np.inf, dtype=torch.float32, device=dev)
-            colmax[:L] = torch.from_numpy(snap.colmax).to(device=dev, dtype=torch.float32)
-            order = [r * T for r in balanced_row_order(-(-L // T))
-                     if r * T not in snap.done_rows]
-            mine = order[mesh.get_local_rank("rows")::n_rows_sh]
-            agree = None
-            if axis_size(mesh, "samples") > 1:
-                samples_group = mesh.get_group("samples")
+    with span("rows"):
+        snap = load_snapshot(checkpoint_path, checkpoint_key(engine, threshold, mesh), L, dev)
+        colmax = torch.full((Lp,), -np.inf, dtype=torch.float32, device=dev)
+        colmax[:L] = torch.from_numpy(snap.colmax).to(device=dev, dtype=torch.float32)
+        order = [r * T for r in balanced_row_order(-(-L // T)) if r * T not in snap.done_rows]
+        mine = order[mesh.get_local_rank("rows")::n_rows_sh]
+        agree = None
+        if axis_size(mesh, "samples") > 1:
+            samples_group = mesh.get_group("samples")
 
-                def agree(n: int) -> int:
-                    t = torch.tensor([n], dtype=torch.int64, device=dev)
-                    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=samples_group)
-                    return int(t)
+            def agree(n: int) -> int:
+                t = torch.tensor([n], dtype=torch.int64, device=dev)
+                dist.all_reduce(t, op=dist.ReduceOp.MAX, group=samples_group)
+                return int(t)
 
-            store = engine.new_store()
-            # round k sweeps the k-th row of every rank of the rows axis; saves
-            # fall in rounds that every rank sweeps, the last round excepted
-            rounds = max(1, -(-checkpoint_every // n_rows_sh))
-            saves = (frozenset(k for k in range(rounds - 1, len(order) // n_rows_sh, rounds)
-                               if (k + 1) * n_rows_sh < len(order))
-                     if checkpoint_path else frozenset())
-            writer = dist.get_rank() == 0
-            written = dataclasses.replace(snap, done_rows=set(snap.done_rows),
-                                          ipos=list(snap.ipos), jpos=list(snap.jpos),
-                                          mi=list(snap.mi), mi_wog=list(snap.mi_wog))
-            saved = 0
+        store = engine.new_store()
+        # round k sweeps the k-th row of every rank of the rows axis; saves
+        # fall in rounds that every rank sweeps, the last round excepted
+        rounds = max(1, -(-checkpoint_every // n_rows_sh))
+        saves = (frozenset(k for k in range(rounds - 1, len(order) // n_rows_sh, rounds)
+                           if (k + 1) * n_rows_sh < len(order))
+                 if checkpoint_path else frozenset())
+        writer = dist.get_rank() == 0
+        written = dataclasses.replace(snap, done_rows=set(snap.done_rows),
+                                      ipos=list(snap.ipos), jpos=list(snap.jpos),
+                                      mi=list(snap.mi), mi_wog=list(snap.mi_wog))
+        saved = 0
 
-            def save(k):
-                nonlocal saved
-                with span("save"):
-                    cm = colmax.clone()
-                    dist.all_reduce(cm, op=dist.ReduceOp.MAX, group=rows_group)
-                    new = _gather_store(store, saved, mine, T, Lp, rows_group, n_rows_sh)
-                    saved = store.checked
-                    if writer:
-                        written.ipos.append(new[0])
-                        written.jpos.append(new[1])
-                        written.mi.append(new[2])
-                        written.mi_wog.append(new[2] if store.wog is None else new[3])
-                        written.done_rows.update(order[:(k + 1) * n_rows_sh])
-                        written.colmax = cm[:L].cpu().numpy().astype(np.float64)
-                        ckpt_mod.save(checkpoint_path, written)
+        def save(k):
+            nonlocal saved
+            with span("save"):
+                cm = colmax.clone()
+                dist.all_reduce(cm, op=dist.ReduceOp.MAX, group=rows_group)
+                new = _gather_store(store, saved, mine, T, Lp, rows_group, n_rows_sh)
+                saved = store.checked
+                if writer:
+                    written.ipos.append(new[0])
+                    written.jpos.append(new[1])
+                    written.mi.append(new[2])
+                    written.mi_wog.append(new[2] if store.wog is None else new[3])
+                    written.done_rows.update(order[:(k + 1) * n_rows_sh])
+                    written.colmax = cm[:L].cpu().numpy().astype(np.float64)
+                    ckpt_mod.save(checkpoint_path, written)
 
-            rerun = engine.sweep_rows(mine, threshold, colmax, store, progress, saves, save,
-                                      agree=agree)
-            synchronize(dev)
-        with span("fetch"):
-            dist.all_reduce(colmax, op=dist.ReduceOp.MAX, group=rows_group)
-            got = _gather_store(store, 0, mine, T, Lp, rows_group, n_rows_sh)
-            cat = ckpt_mod.concat
-            s_i = cat(snap.ipos + [got[0]], np.int64)
-            s_j = cat(snap.jpos + [got[1]], np.int64)
-            s_m = cat(snap.mi + [got[2]], np.float64)
-            colmax_h = colmax[:L].cpu().numpy().astype(np.float64)
-        with span("wog"):
-            if st.wog_lazy:
-                # snapshot and fresh rows alike hold mi placeholders
-                s_w = engine._resolve_deferred_wog(s_m, s_i, s_j, colmax_h, timings)
-            else:
-                s_w = cat(snap.mi_wog + [got[3]], np.float64)
-            if checkpoint_path and writer and os.path.exists(checkpoint_path):
-                os.unlink(checkpoint_path)  # run completed; stale resume data
+        engine.sweep_rows(mine, threshold, colmax, store, progress, saves, save, agree=agree)
+        synchronize(dev)
+    with span("fetch"):
+        dist.all_reduce(colmax, op=dist.ReduceOp.MAX, group=rows_group)
+        got = _gather_store(store, 0, mine, T, Lp, rows_group, n_rows_sh)
+        cat = ckpt_mod.concat
+        s_i = cat(snap.ipos + [got[0]], np.int64)
+        s_j = cat(snap.jpos + [got[1]], np.int64)
+        s_m = cat(snap.mi + [got[2]], np.float64)
+        colmax_h = colmax[:L].cpu().numpy().astype(np.float64)
+    with span("wog"):
+        if st.wog_lazy:
+            # snapshot and fresh rows alike hold mi placeholders
+            s_w = engine._resolve_deferred_wog(s_m, s_i, s_j, colmax_h)
+        else:
+            s_w = cat(snap.mi_wog + [got[3]], np.float64)
+        if checkpoint_path and writer and os.path.exists(checkpoint_path):
+            os.unlink(checkpoint_path)  # run completed; stale resume data
     count("edges_stored", len(s_i))
-    if timings is not None:
-        timings.update(compute_s=mark.seconds("rows"), checkpoint_s=mark.seconds("rows.save"),
-                       fetch_s=mark.seconds("fetch"), wog_s=mark.seconds("wog"),
-                       n_rows=len(mine), rerun_rows=rerun)
     return EdgeSet(ipos=s_i, jpos=s_j, mi=s_m, mi_wog=s_w, colmax=colmax_h)

@@ -63,11 +63,11 @@ from spydrpick_torch.parallel.distributed import is_writer, world_size
 from spydrpick_torch.utils.profiling import (
     SCAN,
     count,
-    phases,
     profile_trace,
     recording,
     seconds,
     span,
+    summary,
 )
 from spydrpick_torch.utils.stopwatch import time_string
 from spydrpick_torch.utils.uniquefile import unique_path
@@ -138,7 +138,7 @@ def _log(opts, *msg):
         print("spydrpick-torch:", *msg, file=sys.stdout, flush=True)
 
 
-def load_and_preprocess(opts: PipelineOptions, timings: dict | None = None) -> Alignment:
+def load_and_preprocess(opts: PipelineOptions) -> Alignment:
     """Load, trim, filter and weight the alignment (SpydrPick.cpp:163-333);
     the same steps as the reference's load_and_preprocess.  On a card the
     parser decodes into pinned memory and the codes go to the card once,
@@ -146,91 +146,82 @@ def load_and_preprocess(opts: PipelineOptions, timings: dict | None = None) -> A
     filter's subsets, the filter's counts (``ops/columns.py``) and the
     computed weights read that copy, and so does the engine
     (``build_device_data``).  On the CPU the host codes are the only
-    codes.  Each part is a span; ``timings`` receives their seconds:
-    parse_s (the FASTA and the mappings list; of it, the native parser's
-    read_s and decode_s, without the codes' allocation between them),
-    upload_s (the codes' copy to the card, 0 on the CPU), lists_s (include,
-    exclude and sample lists, and their subsets), filter_s (the counts, the
-    filter rules and their subset), weights_s and outputs_s (the optional
-    side files).  The counters columns_in and columns_kept count the
-    filter's columns."""
+    codes.  Each part is a span: parse (the FASTA and the mappings list; in
+    it the native parser's read, alloc and decode), upload (the codes' copy
+    to the card; none on the CPU), lists (include, exclude and sample
+    lists, and their subsets), filter (the counts, the filter rules and
+    their subset), weights and outputs (the optional side files).  The
+    counters columns_in and columns_kept count the filter's columns."""
     device = default_device()
-    with phases(timings) as mark:
-        with span("parse"):
-            mappings = (
-                parse_loci_list(opts.mappings_list, opts.input_indexing_base)
-                if opts.mappings_list
-                else None
-            )
-            alignment = read_fasta(opts.alignmentfile, mappings=mappings,
-                                   genome_size=opts.genome_size, pinned=device.type == "cuda")
-            _log(opts, f'alignment "{alignment.id_string}": '
-                 f"{alignment.n_samples} samples x {alignment.n_loci} loci")
-        if device.type == "cuda":
-            with span("upload"):
-                alignment.device_codes = torch.from_numpy(alignment.codes).to(
-                    device, non_blocking=True)
-                synchronize(device)
+    with span("parse"):
+        mappings = (
+            parse_loci_list(opts.mappings_list, opts.input_indexing_base)
+            if opts.mappings_list
+            else None
+        )
+        alignment = read_fasta(opts.alignmentfile, mappings=mappings,
+                               genome_size=opts.genome_size, pinned=device.type == "cuda")
+        _log(opts, f'alignment "{alignment.id_string}": '
+             f"{alignment.n_samples} samples x {alignment.n_loci} loci")
+    if device.type == "cuda":
+        with span("upload"):
+            alignment.device_codes = torch.from_numpy(alignment.codes).to(
+                device, non_blocking=True)
+            synchronize(device)
 
-        with span("outputs"):
-            if opts.output_alignment and is_writer():
-                write_fasta(unique_path(f"{opts.output_dir}/{alignment.id_string}.input.fasta"),
-                            alignment)
+    with span("outputs"):
+        if opts.output_alignment and is_writer():
+            write_fasta(unique_path(f"{opts.output_dir}/{alignment.id_string}.input.fasta"),
+                        alignment)
 
-        with span("lists"):
-            if opts.include_list:
-                incl = set(parse_loci_list(opts.include_list, opts.input_indexing_base).tolist())
-                keep = np.array(
-                    [k for k, t in enumerate(alignment.translation) if t in incl],
-                    dtype=np.int64)
+    with span("lists"):
+        if opts.include_list:
+            incl = set(parse_loci_list(opts.include_list, opts.input_indexing_base).tolist())
+            keep = np.array(
+                [k for k, t in enumerate(alignment.translation) if t in incl],
+                dtype=np.int64)
+            alignment = alignment.subset(keep)
+            _log(opts, f"include list -> {alignment.n_loci} loci")
+        if opts.exclude_list:
+            excl = set(parse_loci_list(opts.exclude_list, opts.input_indexing_base).tolist())
+            keep = np.array(
+                [k for k, t in enumerate(alignment.translation) if t not in excl],
+                dtype=np.int64)
+            alignment = alignment.subset(keep)
+            _log(opts, f"exclude list -> {alignment.n_loci} loci")
+
+    with span("filter"):
+        count("columns_in", alignment.n_loci)
+        if not opts.no_filter_alignment:
+            keep = filter_list(alignment, FilterParams(opts.maf_threshold, opts.gap_threshold))
+            _log(opts, f"apply filter rules.. {len(keep)} positions fulfill filter criteria")
+            if len(keep) == 0:
+                _log(opts, "nothing to do")
+                raise SystemExit(0)
+            if len(keep) != alignment.n_loci:
                 alignment = alignment.subset(keep)
-                _log(opts, f"include list -> {alignment.n_loci} loci")
-            if opts.exclude_list:
-                excl = set(parse_loci_list(opts.exclude_list, opts.input_indexing_base).tolist())
-                keep = np.array(
-                    [k for k, t in enumerate(alignment.translation) if t not in excl],
-                    dtype=np.int64)
-                alignment = alignment.subset(keep)
-                _log(opts, f"exclude list -> {alignment.n_loci} loci")
+            if opts.verbose:
+                print(alignment.statistics_string(), flush=True)
+        count("columns_kept", alignment.n_loci)
 
-        with span("filter"):
-            count("columns_in", alignment.n_loci)
-            if not opts.no_filter_alignment:
-                keep = filter_list(alignment, FilterParams(opts.maf_threshold,
-                                                           opts.gap_threshold))
-                _log(opts, f"apply filter rules.. {len(keep)} positions fulfill filter criteria")
-                if len(keep) == 0:
-                    _log(opts, "nothing to do")
-                    raise SystemExit(0)
-                if len(keep) != alignment.n_loci:
-                    alignment = alignment.subset(keep)
-                if opts.verbose:
-                    print(alignment.statistics_string(), flush=True)
-            count("columns_kept", alignment.n_loci)
+    with span("lists"):
+        if opts.sample_list:
+            alignment = alignment.subsample(
+                parse_loci_list(opts.sample_list, opts.input_indexing_base))
+            _log(opts, f"sample list -> {alignment.n_samples} samples")
 
-        with span("lists"):
-            if opts.sample_list:
-                alignment = alignment.subsample(
-                    parse_loci_list(opts.sample_list, opts.input_indexing_base))
-                _log(opts, f"sample list -> {alignment.n_samples} samples")
+    with span("weights"):
+        alignment = cache_sample_weights(
+            alignment,
+            weights_file=opts.sample_weights,
+            no_reweighting=opts.no_sample_reweighting,
+            threshold=opts.sample_reweighting_threshold,
+            device=device,
+        )
+        _log(opts, f"effective sample size = {alignment.effective_size:.2f}")
 
-        with span("weights"):
-            alignment = cache_sample_weights(
-                alignment,
-                weights_file=opts.sample_weights,
-                no_reweighting=opts.no_sample_reweighting,
-                threshold=opts.sample_reweighting_threshold,
-                device=device,
-            )
-            _log(opts, f"effective sample size = {alignment.effective_size:.2f}")
-
-        with span("outputs"):
-            _side_files(opts, alignment, device)
-    if timings is not None:
-        timings.update(parse_s=mark.seconds("parse"), read_s=mark.seconds("parse.read"),
-                       decode_s=mark.seconds("parse.decode"),
-                       **{f"{k}_s": mark.seconds(k)
-                          for k in ("upload", "lists", "filter", "weights", "outputs")})
+    with span("outputs"):
+        _side_files(opts, alignment, device)
     return alignment
 
 
@@ -283,42 +274,38 @@ def run_pipeline(opts: PipelineOptions, write_outputs: bool = True,
     """One scan.  With ``timings`` (a dict), or with ``opts.verbose`` or
     ``opts.profile_dir``, the scan is recorded (``utils/profiling.py``):
     ``timings`` receives the spans, the counters and the scan's number
-    ("spans", "counters", "scan"), and per stage the seconds of its span:
-    preprocess_s (span lead_in; preprocess_phases: ``load_and_preprocess``'s
-    parts), engine_build_s, threshold_s (span tournament; with the automatic
-    threshold, threshold_phases: ``determine_mi_threshold``'s draws_s,
-    device_s, pairs and total_s), sweep_s (with the engine's phases under
-    sweep_phases), sort_s, aracne_s (aracne_phases: on a card
-    ``aracne_flags``'s csr_s, scan_s and total_s, on the CPU
-    ``run_aracne``'s native_s), write_s (write_phases: each file's seconds,
-    and on a card the couplings file's format_s, copy_s and file_s) and
-    total_s (span scan, the whole call).  Each stage's span ends after a
-    wait for the device, so a stage's time includes its device work.  The
-    counters launches.<wrapper> hold the scan's kernel launches of each
-    wrapper (its ``launches`` attribute, read at the scan's start and end),
-    launches.mi_tile_single_wgmma those of K1 on its wgmma loop.
+    ("spans", "counters", "scan"), and per stage the seconds of its span
+    (``STAGES``: preprocess_s ... write_s, and total_s, the span scan, the
+    whole call).  Each stage's span ends after a wait for the device, so a
+    stage's time includes its device work.  The counters
+    launches.<wrapper> hold the scan's kernel launches of each wrapper
+    (``kernel_launches``, read at the scan's start and end).
     ``opts.profile_dir`` traces the whole call (``profile_trace``).
     Without any of the three nothing is recorded."""
     record = timings
     if record is None and (opts.verbose or opts.profile_dir):
         record = {}
     with profile_trace(opts.profile_dir if is_writer() else None, record), recording(record):
-        before = _launches()
+        before = kernel_launches()
         result = _scan(opts, write_outputs, record)
-        for name, n in _launches().items():
+        for name, n in kernel_launches().items():
             count(f"launches.{name}", n - before[name])
     if record is not None:
         for key, path in STAGES:
             if any(sp["path"] == path for sp in record["spans"]):
                 record[key] = seconds(record["spans"], path)
         _log(opts, "counters: " + ", ".join(f"{k} {v}" for k, v in record["counters"].items()))
+        _log(opts, "spans: " + ", ".join(f"{path} {p['seconds']:.4f}s"
+                                         for path, p in summary(record["spans"]).items()))
         _log(opts, f"analysis completed in {time_string(record['total_s'])}")
     return result
 
 
-def _launches() -> dict:
-    """Each kernel wrapper's ``launches`` count, by the wrapper's name, and
-    K1's launches on its wgmma loop (``mi_tile_single_wgmma``)."""
+def kernel_launches() -> dict:
+    """Each CUDA kernel wrapper's launches so far (its ``launches``
+    attribute; calls on the CPU run the plain version and do not count),
+    by the wrapper's name, and K1's launches on its wgmma loop
+    (``mi_tile_single_wgmma``)."""
     counts = {fn.__name__: fn.launches
               for fn in (mi_tile_single, mi_tile_dual, crosstab_tile, mi_epilogue, row_select,
                          aracne_flags, format_couplings_rows, column_state_counts, pairs_xtab)}
@@ -326,15 +313,12 @@ def _launches() -> dict:
     return counts
 
 
-def _scan(opts: PipelineOptions, write_outputs: bool, tm: dict | None) -> PipelineResult:
-    """``run_pipeline``'s stages, each in its span; ``tm`` (None when the
-    scan is not recorded) receives the stages' phases."""
+def _scan(opts: PipelineOptions, write_outputs: bool, record: dict | None) -> PipelineResult:
+    """``run_pipeline``'s stages, each in its span; ``record`` is the
+    scan's recording (None when the scan is not recorded)."""
     device = default_device()
     if is_writer():
         os.makedirs(opts.output_dir, exist_ok=True)
-
-    def part(key: str) -> dict | None:
-        return None if tm is None else tm.setdefault(key, {})
 
     @contextlib.contextmanager
     def stage(name: str):
@@ -345,10 +329,7 @@ def _scan(opts: PipelineOptions, write_outputs: bool, tm: dict | None) -> Pipeli
             _log(opts, f"stage time: {name} {sp.seconds:.2f}s")
 
     with stage("lead_in"):
-        alignment = load_and_preprocess(opts, part("preprocess_phases"))
-    if tm is not None:
-        _log(opts, "preprocess phases: " + ", ".join(
-            f"{k} {v:.4f}s" for k, v in tm["preprocess_phases"].items()))
+        alignment = load_and_preprocess(opts)
 
     # sharded runs build the mesh before the tournament, so that with
     # sample shards the tournament runs on them too (pipeline.py:248-269)
@@ -382,20 +363,14 @@ def _scan(opts: PipelineOptions, write_outputs: bool, tm: dict | None) -> Pipeli
                 iterations=opts.mi_threshold_iterations,
                 seed=opts.seed,
                 verbose_out=sys.stdout if opts.verbose else None,
-                timings=part("threshold_phases"),
             )
             _log(opts, f"MI save threshold = {mi_threshold:.6f}")
-            if tm is not None:
-                _log(opts, "tournament phases: " + ", ".join(
-                    f"{k} {v:.4f}s" if k.endswith("_s") else f"{k} {v}"
-                    for k, v in tm["threshold_phases"].items()))
         else:
             _log(opts, f"user-defined MI save threshold = {mi_threshold:.6f}")
 
     def progress(lo, hi, n_new, dt):
         _log(opts, f"  {lo + 1}-{hi} / {alignment.n_loci} ({n_new} new edges) time={dt:.3f}s")
 
-    sweep_phases = part("sweep_phases")
     with stage("sweep"):
         if mesh is not None:
             from spydrpick_torch.parallel.mesh import sharded_sweep
@@ -403,14 +378,13 @@ def _scan(opts: PipelineOptions, write_outputs: bool, tm: dict | None) -> Pipeli
             edges = sharded_sweep(engine, mi_threshold, mesh,
                                   progress=progress if opts.verbose else None,
                                   checkpoint_path=opts.checkpoint,
-                                  checkpoint_every=opts.checkpoint_every,
-                                  timings=sweep_phases)
+                                  checkpoint_every=opts.checkpoint_every)
         else:
             edges = engine.sweep(mi_threshold, progress=progress if opts.verbose else None,
                                  checkpoint_path=opts.checkpoint,
-                                 checkpoint_every=opts.checkpoint_every, timings=sweep_phases)
-    if opts.checkpoint and sweep_phases is not None:
-        _log(opts, f"checkpoint saves: {sweep_phases['checkpoint_s']:.2f}s")
+                                 checkpoint_every=opts.checkpoint_every)
+    if opts.checkpoint and record is not None:
+        _log(opts, f"checkpoint saves: {seconds(record['spans'], 'sweep.rows.save'):.2f}s")
     _log(opts, f"{edges.n_edges} edges stored")
 
     outlier_thr, extreme_thr = outlier_thresholds(edges.colmax)
@@ -429,19 +403,12 @@ def _scan(opts: PipelineOptions, write_outputs: bool, tm: dict | None) -> Pipeli
         flags, dev_flags = np.zeros(edges.n_edges, dtype=np.uint8), None
         if not opts.no_aracne and edges.n_edges:
             _log(opts, "run ARACNE")
-            aracne_t = part("aracne_phases")
             if dev_edges is not None:
                 dev_flags = aracne_flags(dev_edges.ipos, dev_edges.jpos, dev_edges.mi,
-                                         opts.aracne_edge_threshold, timings=aracne_t)
+                                         opts.aracne_edge_threshold)
                 flags = to_host([dev_flags])[0]
-                if aracne_t is not None:
-                    _log(opts, f"ARACNE: {edges.n_edges} edges / {aracne_t['nodes']} nodes, "
-                         f"longest row {aracne_t['max_degree']}; csr {aracne_t['csr_s']:.3f}s, "
-                         f"scan {aracne_t['scan_s']:.3f}s on {device}")
             else:
-                flags = run_aracne(edges.ipos, edges.jpos, edges.mi, opts.aracne_edge_threshold,
-                                   timings=aracne_t,
-                                   verbose_out=sys.stdout if opts.verbose else None)
+                flags = run_aracne(edges.ipos, edges.jpos, edges.mi, opts.aracne_edge_threshold)
         elif dev_edges is not None:
             dev_flags = torch.zeros(edges.n_edges, dtype=torch.uint8, device=device)
 
@@ -455,58 +422,51 @@ def _scan(opts: PipelineOptions, write_outputs: bool, tm: dict | None) -> Pipeli
     )
     if write_outputs and is_writer():
         with stage("write"):
-            _write_outputs(opts, result, dev_edges, dev_flags, part("write_phases"))
+            _write_outputs(opts, result, dev_edges, dev_flags)
     return result
 
 
 def _write_outputs(opts: PipelineOptions, res: PipelineResult, dev_edges: DeviceEdges | None,
-                   dev_flags, timings: dict | None = None) -> None:
+                   dev_flags) -> None:
     """Couplings + outliers + outlier-node FASTA (SpydrPick.cpp:423-510),
-    each in its span; ``timings`` receives their seconds (couplings_s,
-    outliers_s, nodes_s).  With ``dev_edges`` (a card) the couplings rows
-    are formatted there (``write_couplings_rows``, whose format_s, copy_s
-    and file_s join them); else, and for the other files, on the host.
-    The counters bytes_written.couplings, .outliers and .nodes count the
-    bytes each writer handed its file."""
+    each in its span (couplings, outliers, nodes).  With ``dev_edges`` (a
+    card) the couplings rows are formatted there (``write_couplings_rows``,
+    its spans format, copy and file inside couplings); else, and for the
+    other files, on the host.  The counters bytes_written.couplings,
+    .outliers and .nodes count the bytes each writer handed its file."""
     al = res.alignment
     base = opts.output_indexing_base
     stem = f"{opts.output_dir}/{al.id_string}.{al.size_string()}.spydrpick_couplings"
-    couplings_t = None if timings is None or dev_edges is None else {}
-    with phases(timings) as mark:
-        with span("couplings"):
-            couplings_path = unique_path(f"{stem}.{base}-based.{res.edges.n_edges}edges")
-            if dev_edges is not None:
-                with open(couplings_path, "wb") as f:
-                    write_couplings_rows(f, dev_edges.ipos, dev_edges.jpos, dev_edges.mi,
-                                         dev_flags, al, base, opts.linear_genome,
-                                         timings=couplings_t)
-            else:
-                with open(couplings_path, "w") as f:
-                    write_couplings(f, res.edges, res.flags, al, base, opts.linear_genome)
-            res.couplings_path = str(couplings_path)
-            _log(opts, f'wrote network ({res.edges.n_edges} edges) to "{couplings_path}"')
+    with span("couplings"):
+        couplings_path = unique_path(f"{stem}.{base}-based.{res.edges.n_edges}edges")
+        if dev_edges is not None:
+            with open(couplings_path, "wb") as f:
+                write_couplings_rows(f, dev_edges.ipos, dev_edges.jpos, dev_edges.mi,
+                                     dev_flags, al, base, opts.linear_genome)
+        else:
+            with open(couplings_path, "w") as f:
+                write_couplings(f, res.edges, res.flags, al, base, opts.linear_genome)
+        res.couplings_path = str(couplings_path)
+        _log(opts, f'wrote network ({res.edges.n_edges} edges) to "{couplings_path}"')
 
-        with span("outliers"):
-            outliers_path = unique_path(f"{stem}.{base}-based.outliers")
-            with open(outliers_path, "w") as f:
-                n_rows = write_outliers(
-                    f, res.edges, res.flags, al,
-                    res.outlier_threshold, res.extreme_outlier_threshold,
-                    opts.ld_threshold, base, opts.linear_genome,
-                )
-            res.outliers_path = str(outliers_path)
-            _log(opts, f'wrote outlier network ({n_rows} rows) to "{outliers_path}"')
+    with span("outliers"):
+        outliers_path = unique_path(f"{stem}.{base}-based.outliers")
+        with open(outliers_path, "w") as f:
+            n_rows = write_outliers(
+                f, res.edges, res.flags, al,
+                res.outlier_threshold, res.extreme_outlier_threshold,
+                opts.ld_threshold, base, opts.linear_genome,
+            )
+        res.outliers_path = str(outliers_path)
+        _log(opts, f'wrote outlier network ({n_rows} rows) to "{outliers_path}"')
 
-        with span("nodes"):
-            mask = res.edges.mi >= res.outlier_threshold
-            nodes = np.unique(np.concatenate([res.edges.ipos[mask], res.edges.jpos[mask]]))
-            _log(opts, f"extract nodes involved in outlier edges: found {len(nodes)} nodes")
-            n_bytes = 0
-            if 0 < len(nodes) < al.n_loci:
-                n_bytes = write_fasta(
-                    unique_path(f"{opts.output_dir}/{al.id_string}.outlier_nodes.fasta"),
-                    al.subset(nodes))
-            count("bytes_written.nodes", n_bytes)
-    if timings is not None:
-        timings.update({f"{k}_s": mark.seconds(k) for k in ("couplings", "outliers", "nodes")},
-                       **(couplings_t or {}))
+    with span("nodes"):
+        mask = res.edges.mi >= res.outlier_threshold
+        nodes = np.unique(np.concatenate([res.edges.ipos[mask], res.edges.jpos[mask]]))
+        _log(opts, f"extract nodes involved in outlier edges: found {len(nodes)} nodes")
+        n_bytes = 0
+        if 0 < len(nodes) < al.n_loci:
+            n_bytes = write_fasta(
+                unique_path(f"{opts.output_dir}/{al.id_string}.outlier_nodes.fasta"),
+                al.subset(nodes))
+        count("bytes_written.nodes", n_bytes)

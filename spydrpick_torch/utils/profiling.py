@@ -22,10 +22,6 @@ in the profiler's trace on the clock of the kernels and copies.  No span
 or counter reads a device value or waits for the device: a span around
 device work that is only enqueued times the host's call.
 
-A function that fills a ``timings`` dict of its own takes a ``phases``
-mark, whose ``seconds(child)`` sums the spans recorded since the mark
-under the mark's path: the dicts are views of the spans.
-
 ``profile_trace`` is ``--profile-dir``: a torch.profiler trace of the
 enclosed region (the whole scan) with the recording's spans and counters
 beside it.
@@ -160,46 +156,6 @@ def recording(into: dict | None):
         _active = None
 
 
-class Mark:
-    """A point of a recording: the calling thread's path and the spans
-    recorded so far."""
-
-    def __init__(self, rec: _Recording):
-        self.rec = rec
-        self.base = rec.path()
-        self.first = len(rec.spans)
-        self.start = time.perf_counter_ns()
-
-    def seconds(self, child: str | None = None) -> float:
-        """The summed seconds of the spans at the mark's path + ``child``
-        recorded since the mark; with no ``child``, the seconds since it."""
-        if child is None:
-            return (time.perf_counter_ns() - self.start) * 1e-9
-        with self.rec.lock:
-            spans = self.rec.spans[self.first:]
-        return seconds(spans, f"{self.base}.{child}" if self.base else child)
-
-
-@contextlib.contextmanager
-def phases(timings: dict | None):
-    """For a function that fills ``timings`` from its spans: yields a
-    ``Mark`` of the active recording, or None when ``timings`` is None.
-    With ``timings`` and no recording active, the block records into one
-    of its own, which is then dropped."""
-    global _active
-    if timings is None:
-        yield None
-        return
-    if _active is not None:
-        yield Mark(_active)
-        return
-    rec = _active = _Recording({})
-    try:
-        yield Mark(rec)
-    finally:
-        _active = None
-
-
 def seconds(spans: list, path: str) -> float:
     """The summed seconds of the spans at ``path``."""
     return sum((s["end"] - s["start"] for s in spans if s["path"] == path), 0.0)
@@ -251,39 +207,3 @@ def profile_trace(trace_dir: str | None, record: dict | None = None):
         with open(os.path.join(trace_dir, "scan_spans.json"), "w") as f:
             json.dump({"scan": record.get("scan"), "counters": record.get("counters", {}),
                        "paths": summary(spans), "spans": spans}, f, indent=1)
-
-
-# trace categories of work on the device (kineto's Chrome trace)
-DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
-
-
-def device_intervals(events: list[dict], lo: float = float("-inf"),
-                     hi: float = float("inf")) -> list[tuple[float, float, str]]:
-    """(start, end, name) in microseconds of every device event of a
-    Chrome trace's ``traceEvents``, clipped to [lo, hi]; events wholly
-    outside are dropped."""
-    out = []
-    for e in events:
-        if e.get("ph") != "X" or e.get("cat") not in DEVICE_CATEGORIES:
-            continue
-        a, b = max(float(e["ts"]), lo), min(float(e["ts"]) + float(e["dur"]), hi)
-        if b > a:
-            out.append((a, b, e.get("name", "")))
-    return out
-
-
-def busy_union(intervals) -> float:
-    """Length of the union of (start, end, ...) intervals: the time the
-    device was busy, with overlapping work (streams, copy engines)
-    counted once."""
-    busy, cur_a, cur_b = 0.0, None, None
-    for a, b, *_ in sorted(intervals):
-        if cur_b is None or a > cur_b:
-            if cur_b is not None:
-                busy += cur_b - cur_a
-            cur_a, cur_b = a, b
-        else:
-            cur_b = max(cur_b, b)
-    if cur_b is not None:
-        busy += cur_b - cur_a
-    return busy

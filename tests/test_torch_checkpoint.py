@@ -17,6 +17,7 @@ from spydrpick_torch.cli import main as torch_main
 from spydrpick_torch.engine import checkpoint as ck
 from spydrpick_torch.engine.solver import EngineConfig, MIEngine
 from spydrpick_torch.pipeline import PipelineOptions, engine_config, load_and_preprocess
+from spydrpick_torch.utils.profiling import recording, seconds
 
 from tests.conftest import random_alignment
 
@@ -155,9 +156,12 @@ def test_kill_then_resume_equals_clean_run(tmp_path, wog_fetch):
     if wog_fetch == "outliers":  # lazy snapshots hold mi placeholders
         np.testing.assert_array_equal(saved.mi_wog[0], saved.mi[0])
     progress, seen = killer(-1)
-    tm = {}
-    resumed = eng.sweep(THR, progress=progress, checkpoint_path=path, timings=tm)
-    assert seen == [256, 384, 512, 640] and tm["n_rows"] == 4
+    rec = {}
+    with recording(rec):
+        resumed = eng.sweep(THR, progress=progress, checkpoint_path=path)
+    # the rows not in the snapshot, one item each, each swept once
+    assert seen == [256, 384, 512, 640] and rec["counters"]["sweep_items"] == 4
+    assert rec["counters"]["rows_reswept"] == 0
     assert_equal_edges(resumed, clean)
     assert not os.path.exists(path)
     if wog_fetch == "outliers":
@@ -192,12 +196,14 @@ def test_checkpoint_written_during_sweep_and_removed_on_completion(tmp_path):
         snap = ck.load(path, key)
         saved_rows.append(None if snap is None else sorted(snap.done_rows))
 
-    tm = {}
-    eng.sweep(THR, progress=progress, checkpoint_path=path, checkpoint_every=2, timings=tm)
+    rec = {}
+    with recording(rec):
+        eng.sweep(THR, progress=progress, checkpoint_path=path, checkpoint_every=2)
     # progress runs before each save; saves after rows 2 and 4, none after the last
     assert saved_rows == [None, None, [0, 128], [0, 128], [0, 128, 256, 384],
                           [0, 128, 256, 384]]
-    assert tm["checkpoint_s"] > 0
+    saves = [sp for sp in rec["spans"] if sp["path"] == "rows.save"]
+    assert len(saves) == 2 and seconds(rec["spans"], "rows.save") > 0
     assert not os.path.exists(path)
 
 

@@ -218,7 +218,7 @@ def test_cuda_row_select_window_matches_plain(cuda_device, i0, j0, W, with_wog):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("wog_fetch", ["outliers", "full"])
-def test_cuda_windowed_codes_sweep_equals_full_width(cuda_device, wog_fetch):
+def test_cuda_windowed_codes_sweep_equals_full_width(cuda_device, wog_fetch, monkeypatch):
     """j-windows and codes storage on the card: K1 (or B3) and B2 once per
     item, and the full-width dense sweep's arrays element for element."""
     al = alignment(96, 1400)
@@ -227,11 +227,23 @@ def test_cuda_windowed_codes_sweep_equals_full_width(cuda_device, wog_fetch):
     eng = MIEngine(al, EngineConfig(tile=256, wog_fetch=wog_fetch, row_window=512,
                                     onehot_storage="codes"), device=cuda_device)
     kernel = mi_tile_single if wog_fetch == "outliers" else mi_tile_dual
+    from spydrpick_torch.engine import solver
+    from spydrpick_torch.utils.profiling import recording
+
+    expansions = []
+    expand_codes = solver.expand_codes
+
+    def spy(*args, **kwargs):
+        expansions.append(args[1:3])
+        return expand_codes(*args, **kwargs)
+    monkeypatch.setattr(solver, "expand_codes", spy)
     launches = kernel.launches, row_select.launches
-    tm = {}
-    got = eng.sweep(0.05, timings=tm)
-    assert tm["n_items"] > tm["n_rows"] and tm["expand_s"] > 0
-    assert (kernel.launches - launches[0], row_select.launches - launches[1]) == (tm["n_items"],) * 2
+    rec = {}
+    with recording(rec):
+        got = eng.sweep(0.05)
+    n_items = rec["counters"]["sweep_items"]
+    assert n_items > len(range(0, eng.L, 256)) and expansions  # codes: expanded on use
+    assert (kernel.launches - launches[0], row_select.launches - launches[1]) == (n_items,) * 2
     for f in ("ipos", "jpos", "mi", "mi_wog", "colmax"):
         np.testing.assert_array_equal(getattr(got, f), getattr(full, f), err_msg=f)
 
@@ -697,6 +709,7 @@ def test_cuda_lead_in_runs_the_kernels(cuda_device, tmp_path, monkeypatch):
     from spydrpick_torch.ops.columns import column_state_counts
     from spydrpick_torch.ops.pairs import pairs_xtab
     from spydrpick_torch.pipeline import PipelineOptions, load_and_preprocess
+    from spydrpick_torch.utils.profiling import recording, seconds
 
     rng = np.random.default_rng(3)
     S, L = 200, 700
@@ -707,10 +720,11 @@ def test_cuda_lead_in_runs_the_kernels(cuda_device, tmp_path, monkeypatch):
     write_fasta(path, Alignment(codes, [f"s{k}" for k in range(S)], "lead", np.arange(L), L))
     opts = PipelineOptions(alignmentfile=path, tile=128)
     n_counts, n_pairs = column_state_counts.launches, pairs_xtab.launches
-    tm = {}
-    al = load_and_preprocess(opts, tm)
+    rec = {}
+    with recording(rec):
+        al = load_and_preprocess(opts)
     assert al.device_codes is not None and al.device_codes.is_cuda
-    assert column_state_counts.launches > n_counts and tm["upload_s"] > 0
+    assert column_state_counts.launches > n_counts and seconds(rec["spans"], "upload") > 0
     assert "codes" not in al.__dict__  # the filter's subset: no host copy yet
     monkeypatch.setenv("SPYDRPICK_TORCH_DEVICE", "cpu")
     al_cpu = load_and_preprocess(opts)
@@ -728,7 +742,8 @@ def test_cuda_lead_in_runs_the_kernels(cuda_device, tmp_path, monkeypatch):
     assert torch.equal(eng.pairs_table(i.to(cuda_device), j.to(cuda_device)).cpu(),
                        ref.pairs_table(i, j))
     kw = dict(n_values=2000, threshold_pairs=5000, iterations=3, seed=9)
-    tm = {}
-    got = threshold.determine_mi_threshold(eng, timings=tm, **kw)
-    assert pairs_xtab.launches > n_pairs and tm["device_s"] > 0
+    rec = {}
+    with recording(rec):
+        got = threshold.determine_mi_threshold(eng, **kw)
+    assert pairs_xtab.launches > n_pairs and rec["counters"]["pair_chunks"] > 0
     assert abs(got - threshold.determine_mi_threshold(ref, **kw)) <= TOL

@@ -60,22 +60,6 @@ def test_port_imports_without_jax():
     assert res.stdout.splitlines() == ["[]", "[]"]
 
 
-def test_bench_stays_inside_the_port():
-    """Importing spydrpick_torch.bench, and a whole bench on the CPU (data,
-    threshold, sweeps and an end-to-end run), loads no module of jax or of
-    the JAX package."""
-    res = run_python(
-        "import os\n"
-        "os.environ.update(BENCH_SAMPLES='40', BENCH_LOCI='256', BENCH_TILE='128', "
-        "BENCH_SWEEPS='1', BENCH_SWEEPS_MAX='1', BENCH_E2E_RUNS='1')\n"
-        "import spydrpick_torch.bench\n" + REPORT +
-        "assert spydrpick_torch.bench.main() == 0\n" + REPORT)
-    assert res.returncode == 0, res.stderr
-    lines = res.stdout.splitlines()
-    assert lines[:2] == ["[]", "[]"] and lines[-2:] == ["[]", "[]"], lines[-3:]
-    assert '"metric": "mi_column_pairs_per_s"' in lines[-3]
-
-
 def test_cpu_cli_run_stays_inside_the_port(tmp_path):
     """A whole CLI run on the CPU (FASTA parse, filter, weights, sweep,
     ARACNE and the couplings formatter, native libraries included) loads

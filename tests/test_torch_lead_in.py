@@ -30,6 +30,7 @@ from spydrpick_torch.engine.solver import EngineConfig, MIEngine, pairs_chunk
 from spydrpick_torch.ops.columns import column_state_counts, column_state_counts_plain
 from spydrpick_torch.ops.pairs import pairs_xtab, pairs_xtab_plain
 from spydrpick_torch.pipeline import PipelineOptions, load_and_preprocess
+from spydrpick_torch.utils.profiling import recording, seconds
 
 from tests.golden.make_golden import GOLDEN2_ARGS
 
@@ -238,8 +239,9 @@ def test_pairs_xtab_outside_the_exact_range_within_one_ulp():
 
 
 def test_engine_pairs_path_free_of_chunks(jax_engine):
-    """The engine's tournament tables: the same bits for any chunk size,
-    and the thresholds' device and draw seconds in ``timings``."""
+    """The engine's tournament tables: the same bits for any chunk size;
+    the tournament's draws on their worker thread and its pairs in chunks
+    of ``_pairs_chunk``, in its spans and counters."""
     jal = jax_engine.alignment
     eng = MIEngine(jal, EngineConfig(tile=128), device="cpu")
     assert eng._pairs_chunk == pairs_chunk(jal.n_samples) == 65536
@@ -253,12 +255,18 @@ def test_engine_pairs_path_free_of_chunks(jax_engine):
         np.testing.assert_array_equal(eng.pair_mi(ipos, jpos), want)
         perm = rng.permutation(len(ipos))
         np.testing.assert_array_equal(eng.pair_mi(ipos[perm], jpos[perm]), want[perm])
-    tm = {}
-    thr = threshold.determine_mi_threshold(eng, 400, threshold_pairs=2000, iterations=3,
-                                           seed=4, timings=tm)
-    assert thr > 0 and set(tm) == {"draws_s", "device_s", "pairs", "total_s"}
-    assert tm["pairs"] == 6000 and 0 < tm["draws_s"] <= tm["total_s"]
-    assert 0 < tm["device_s"] <= tm["total_s"]
+    rec = {}
+    with recording(rec):
+        thr = threshold.determine_mi_threshold(eng, 400, threshold_pairs=2000, iterations=3,
+                                               seed=4)
+    assert thr > 0
+    assert rec["counters"] == {"pairs_drawn": 6000, "pair_chunks": -(-6000 // 896)}
+    draws = [sp for sp in rec["spans"] if sp["path"] == "draw"]
+    waits = [sp for sp in rec["spans"] if sp["path"] == "wait_draws"]
+    assert len(draws) == len(waits) == 3
+    assert {sp["thread"] for sp in draws} == {"draws_0"}
+    assert {sp["thread"] for sp in waits} == {"main"}
+    assert 0 < seconds(rec["spans"], "draw") <= seconds(rec["spans"], "scan")
 
 
 def test_pairs_mi_is_the_float64_mi_rounded_once(jax_engine):
@@ -313,8 +321,9 @@ def load_cases(tmp_path):
 @pytest.mark.parametrize("case", ["golden2", "dropping_lists"])
 def test_load_and_preprocess_equals_jax(tmp_path, case):
     kw = load_cases(tmp_path)[case]
-    tm = {}
-    got = load_and_preprocess(PipelineOptions(**kw), tm)
+    rec = {}
+    with recording(rec):
+        got = load_and_preprocess(PipelineOptions(**kw))
     want = jax_load(JaxOptions(**kw))
     assert got.device_codes is None  # the CPU: the host codes are the only codes
     np.testing.assert_array_equal(got.codes, want.codes)
@@ -325,4 +334,6 @@ def test_load_and_preprocess_equals_jax(tmp_path, case):
     assert got.n_original_positions == want.n_original_positions
     if case == "dropping_lists":
         assert got.n_loci < 240 * 6 // 7 and got.n_samples < 120
-    assert tm["upload_s"] == 0.0 and tm["read_s"] > 0 and tm["decode_s"] > 0
+    paths = {sp["path"] for sp in rec["spans"]}
+    assert "upload" not in paths and {"parse.read", "parse.decode"} <= paths
+    assert seconds(rec["spans"], "parse.read") > 0 and seconds(rec["spans"], "parse.decode") > 0

@@ -1,9 +1,8 @@
 """The port's profiling module (``spydrpick_torch/utils/profiling.py``):
-trace reading (device-busy union), the span and counter recorder, the
-record a CPU ``run_pipeline`` leaves in ``timings`` and ``--profile-dir``;
-the bench alignment writer of ``spydrpick_torch.stage_profile``; and the
-benchmark's readers of the program's spans and counters
-(``gwes_bench/metrics/``)."""
+the span and counter recorder, the record a CPU ``run_pipeline`` leaves
+in ``timings`` and ``--profile-dir``; the bench alignment writer of
+``chip_smoke.py``; and the benchmark's readers of the program's spans and
+counters (``gwes_bench/metrics/``)."""
 
 from __future__ import annotations
 
@@ -18,55 +17,18 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from chip_smoke import bench_alignment, write_inputs
 from gwes_bench.cells import reader
 from gwes_bench.record import Run
 from spydrpick_torch.core.alignment import Alignment
+from spydrpick_torch.engine.solver import MIEngine
+from spydrpick_torch.engine.threshold import default_mi_values, determine_threshold_pairs
 from spydrpick_torch.io.fasta import write_fasta
 from spydrpick_torch.pipeline import STAGES, PipelineOptions, run_pipeline
-from spydrpick_torch.stage_profile import bench_alignment, write_inputs
 from spydrpick_torch.utils import profiling
-from spydrpick_torch.utils.profiling import (
-    busy_union,
-    count,
-    device_intervals,
-    phases,
-    recording,
-    span,
-    summary,
-)
+from spydrpick_torch.utils.profiling import count, recording, span, summary
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-def ev(cat, ts, dur, name="k"):
-    return {"ph": "X", "cat": cat, "ts": ts, "dur": dur, "name": name}
-
-
-@pytest.mark.parametrize("intervals, busy", [
-    ([], 0.0),
-    ([(0, 10)], 10.0),
-    ([(0, 10), (20, 25)], 15.0),                  # disjoint
-    ([(0, 10), (5, 15)], 15.0),                   # overlapping streams count once
-    ([(0, 30), (5, 10), (12, 20)], 30.0),         # nested
-    ([(20, 25), (0, 10), (10, 12)], 17.0),        # unsorted, touching
-])
-def test_busy_union(intervals, busy):
-    assert busy_union(intervals) == busy
-
-
-def test_device_intervals_filters_and_clips():
-    events = [
-        ev("kernel", 0, 10, "mi"),
-        ev("gpu_memcpy", 8, 4, "copy"),
-        ev("gpu_memset", 30, 5, "set"),
-        ev("cpu_op", 0, 100, "aten::add"),          # host op: not device time
-        ev("gpu_user_annotation", 0, 100, "region"),  # spans, not work
-        ev("kernel", 50, 10, "late"),               # outside the window
-        {"ph": "i", "cat": "kernel", "ts": 1, "name": "instant"},
-    ]
-    iv = device_intervals(events, lo=2.0, hi=33.0)
-    assert iv == [(2.0, 10.0, "mi"), (8.0, 12.0, "copy"), (30.0, 33.0, "set")]
-    assert busy_union(iv) == 13.0
 
 
 def test_bench_inputs_round_trip(tmp_path):
@@ -214,31 +176,6 @@ def test_off_records_nothing_and_enters_no_record_function(monkeypatch):
     with recording(None):
         with span("d"):
             pass
-    with phases(None) as mark:
-        assert mark is None
-
-
-def test_phases_view_alone_and_inside_a_recording():
-    tm: dict = {}
-    with phases(tm) as mark:
-        with span("x"):
-            time.sleep(0.001)
-        with span("x"):
-            pass
-    assert mark.seconds("x") >= 0.001 and mark.seconds("y") == 0.0
-    assert profiling._active is None  # the block's own recording is dropped
-    assert tm == {}
-    rec: dict = {}
-    with recording(rec):
-        with span("outer"):
-            with span("x"):
-                pass
-            with phases({}) as inner:
-                with span("x"):
-                    time.sleep(0.001)
-    assert inner.base == "outer"
-    (late,) = [s for s in rec["spans"] if s["path"] == "outer.x"][1:]
-    assert inner.seconds("x") == pytest.approx(late["end"] - late["start"])
 
 
 def test_profiler_trace_holds_the_spans_nested(tmp_path):
@@ -274,25 +211,39 @@ def small_fasta(path: str) -> str:
     return path
 
 
+def swept_rows(mp: pytest.MonkeyPatch) -> list:
+    """While ``mp`` holds, each ``MIEngine.row_edges`` call (one item of a
+    block-row) appends its block-row to the list returned."""
+    rows: list = []
+    row_edges = MIEngine.row_edges
+
+    def spy(self, i0, *args, **kwargs):
+        rows.append(i0)
+        return row_edges(self, i0, *args, **kwargs)
+    mp.setattr(MIEngine, "row_edges", spy)
+    return rows
+
+
 @pytest.fixture(scope="module")
 def scans(tmp_path_factory):
     """Two recorded CPU scans of one small alignment: [(result, timings,
-    the FASTA's path)]."""
+    the FASTA's path, the block-row of each item swept)]."""
     tmp = tmp_path_factory.mktemp("profiling")
     fasta = small_fasta(str(tmp / "aln.fasta"))
     out = []
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("SPYDRPICK_TORCH_DEVICE", "cpu")
-        for k in range(2):
+    for k in range(2):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("SPYDRPICK_TORCH_DEVICE", "cpu")
             opts = PipelineOptions(alignmentfile=fasta, output_dir=str(tmp / f"o{k}"),
                                    tile=128, seed=3)
             tm: dict = {}
-            out.append((run_pipeline(opts, timings=tm), tm, fasta))
+            rows = swept_rows(mp)
+            out.append((run_pipeline(opts, timings=tm), tm, fasta, rows))
     return out
 
 
 def test_every_stage_span_once_and_its_key_equals_its_seconds(scans):
-    for _, tm, _ in scans:
+    for _, tm, *_ in scans:
         spans = by_path(tm)
         for key, path in STAGES:
             (s,) = spans[path]
@@ -302,45 +253,59 @@ def test_every_stage_span_once_and_its_key_equals_its_seconds(scans):
     assert scans[1][1]["scan"] > scans[0][1]["scan"]
 
 
-def test_phase_keys_are_views_of_their_spans(scans):
-    for _, tm, _ in scans:
+# the spans a CPU scan records below its stages: path -> (count, thread)
+SPAN_TREE = {
+    "lead_in.parse": (1, "main"),
+    "lead_in.parse.read": (1, "main"),
+    "lead_in.parse.alloc": (1, "main"),
+    "lead_in.parse.decode": (1, "main"),
+    "lead_in.lists": (2, "main"),
+    "lead_in.filter": (1, "main"),
+    "lead_in.weights": (1, "main"),
+    "lead_in.outputs": (2, "main"),
+    "tournament.draw": (10, "draws_0"),
+    "tournament.wait_draws": (10, "main"),
+    "sweep.rows": (1, "main"),
+    "sweep.rows.check": (1, "main"),  # 2 block-rows: one check, after the last
+    "sweep.fetch": (1, "main"),
+    "sweep.wog": (1, "main"),
+    "sweep.wog.pairs": (1, "main"),
+    "write.couplings": (1, "main"),
+    "write.outliers": (1, "main"),
+    "write.nodes": (1, "main"),
+}
+
+
+@pytest.mark.parametrize("path", sorted(SPAN_TREE))
+def test_span_tree(scans, path):
+    """Each span in every scan, as often as its stage opens it, on its
+    thread, and inside an interval of its parent."""
+    n, thread = SPAN_TREE[path]
+    parent = path.rpartition(".")[0]
+    for _, tm, *_ in scans:
         spans = by_path(tm)
-
-        def secs(path):
-            return sum(s["end"] - s["start"] for s in spans.get(path, ()))
-
-        pre = tm["preprocess_phases"]
-        for k in ("parse", "lists", "filter", "weights", "outputs"):
-            assert pre[f"{k}_s"] == pytest.approx(secs(f"lead_in.{k}"), abs=1e-12), k
-        assert pre["read_s"] == pytest.approx(secs("lead_in.parse.read"), abs=1e-12)
-        assert pre["decode_s"] == pytest.approx(secs("lead_in.parse.decode"), abs=1e-12)
-        assert "lead_in.parse.alloc" in spans and pre["upload_s"] == 0.0  # the CPU
-        th = tm["threshold_phases"]
-        assert th["draws_s"] == pytest.approx(secs("tournament.draw"), abs=1e-12)
-        assert len(spans["tournament.draw"]) == len(spans["tournament.wait_draws"]) == 10
-        assert all(s["thread"] == "draws_0" for s in spans["tournament.draw"])
-        assert th["draws_s"] <= th["total_s"] <= tm["threshold_s"]
-        sw = tm["sweep_phases"]
-        assert sw["compute_s"] == pytest.approx(secs("sweep.rows"), abs=1e-12)
-        assert sw["fetch_s"] == pytest.approx(secs("sweep.fetch"), abs=1e-12)
-        assert sw["wog_s"] == pytest.approx(secs("sweep.wog"), abs=1e-12)
-        assert sw["wog_pairs_s"] == pytest.approx(secs("sweep.wog.pairs"), abs=1e-12)
-        assert sw["checkpoint_s"] == 0.0 and len(spans["sweep.rows.check"]) >= 1
-        wp = tm["write_phases"]
-        for k in ("couplings", "outliers", "nodes"):
-            assert wp[f"{k}_s"] == pytest.approx(secs(f"write.{k}"), abs=1e-12), k
+        assert len(spans.get(path, ())) == n, path
+        for s in spans[path]:
+            assert s["thread"] == thread and s["start"] <= s["end"]
+            assert any(p["start"] <= s["start"] and s["end"] <= p["end"]
+                       for p in spans[parent]), path
 
 
 def test_counters_match_the_results(scans):
-    for res, tm, fasta in scans:
+    for res, tm, fasta, rows in scans:
         c = tm["counters"]
         assert c["edges_stored"] == res.edges.n_edges > 0
-        assert c["pairs_drawn"] == tm["threshold_phases"]["pairs"]
+        L = res.alignment.n_loci
+        possible = L * (L - 1) // 2
+        per_iteration = determine_threshold_pairs(
+            0, possible, 1.0 - default_mi_values(L, 0) / possible)
+        assert c["pairs_drawn"] == 10 * per_iteration  # 10 iterations
         assert c["fasta_bytes"] == os.path.getsize(fasta)
         assert c["fasta_slow_records"] == 0  # lines of 60 codes, no interior whitespace
         assert c["columns_in"] >= c["columns_kept"] == res.alignment.n_loci
-        assert c["sweep_items"] == tm["sweep_phases"]["n_items"]
-        assert c["rows_reswept"] == tm["sweep_phases"]["rerun_rows"]
+        # full-width rows: one item a block-row, each swept once
+        assert sorted(rows) == list(range(0, L, 128))
+        assert c["sweep_items"] == len(rows) and c["rows_reswept"] == 0
         assert c["pair_chunks"] >= 1
         out_dir = os.path.dirname(res.couplings_path)
         nodes = [f for f in os.listdir(out_dir) if f.endswith(".outlier_nodes.fasta")]
@@ -359,30 +324,28 @@ def test_counters_match_the_results(scans):
 
 
 def test_store_grows_and_reswept_rows_are_counted(scans, tmp_path, monkeypatch):
-    res0, _, fasta = scans[0]
+    res0, _, fasta, _ = scans[0]
     monkeypatch.setenv("SPYDRPICK_TORCH_DEVICE", "cpu")
+    rows = swept_rows(monkeypatch)
     tm: dict = {}
     res = run_pipeline(PipelineOptions(alignmentfile=fasta, output_dir=str(tmp_path / "o"),
                                        tile=128, seed=3, store_capacity=256), timings=tm)
     c = tm["counters"]
     assert c["store_grows"] >= 1
-    assert c["rows_reswept"] == tm["sweep_phases"]["rerun_rows"] > 0
-    assert c["sweep_items"] == tm["sweep_phases"]["n_items"] + c["rows_reswept"]  # one item a row
+    # one item a row: the sweeps of a row past its first are the rows swept again
+    assert c["rows_reswept"] == len(rows) - len(set(rows)) > 0
+    assert c["sweep_items"] == len(rows) == len(set(rows)) + c["rows_reswept"]
     assert c["edges_stored"] == res.edges.n_edges == res0.edges.n_edges
 
 
 def test_existing_keys_stay(scans):
-    _, tm, _ = scans[0]
-    for k in ("preprocess_s", "engine_build_s", "threshold_s", "sweep_s", "sort_s",
-              "aracne_s", "write_s", "total_s"):
+    _, tm, *_ = scans[0]
+    keys = ("preprocess_s", "engine_build_s", "threshold_s", "sweep_s", "sort_s",
+            "aracne_s", "write_s", "total_s")
+    assert set(tm) == {"spans", "counters", "scan"} | set(keys)
+    assert keys == tuple(k for k, _ in STAGES)
+    for k in keys:
         assert tm[k] > 0, k
-    assert set(tm["preprocess_phases"]) == {"parse_s", "read_s", "decode_s", "upload_s",
-                                            "lists_s", "filter_s", "weights_s", "outputs_s"}
-    assert set(tm["threshold_phases"]) == {"draws_s", "device_s", "pairs", "total_s"}
-    assert {"compute_s", "checkpoint_s", "fetch_s", "wog_s", "n_rows", "n_items",
-            "rerun_rows", "wog_candidates", "wog_pairs_s"} <= set(tm["sweep_phases"])
-    assert "native_s" in tm["aracne_phases"]
-    assert set(tm["write_phases"]) == {"couplings_s", "outliers_s", "nodes_s"}
     assert tm["total_s"] >= tm["sweep_s"]
 
 
@@ -441,7 +404,7 @@ def test_new_metrics_in_the_benchmark():
 @pytest.mark.parametrize("name", sorted(NEW_METRICS))
 def test_span_readers(scans, name):
     path = NEW_METRICS[name]
-    tms = [tm for _, tm, _ in scans]
+    tms = [tm for _, tm, *_ in scans]
     want = np.mean([sum(s["end"] - s["start"] for s in tm["spans"] if s["path"] == path)
                     for tm in tms])
     assert reader(name)(run_of(tms)) == pytest.approx(want, rel=1e-12) and want > 0
@@ -452,9 +415,9 @@ def test_span_readers(scans, name):
 
 
 def test_write_rate_reader(scans):
-    tms = [tm for _, tm, _ in scans]
+    tms = [tm for _, tm, *_ in scans]
     rates = []
-    for res, tm, _ in scans:
+    for res, tm, *_ in scans:
         (w,) = [s for s in tm["spans"] if s["path"] == "write"]
         on_disk = sum(os.path.getsize(os.path.join(os.path.dirname(res.couplings_path), f))
                       for f in os.listdir(os.path.dirname(res.couplings_path)))

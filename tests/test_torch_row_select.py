@@ -32,6 +32,7 @@ from spydrpick_torch.engine import checkpoint as ck
 from spydrpick_torch.engine.solver import (EdgeSet, EngineConfig, MIEngine,
                                            device_data_from_jax)
 from spydrpick_torch.ops.compact import EdgeStore, row_select, row_select_plain
+from spydrpick_torch.utils.profiling import recording
 
 from tests.conftest import random_alignment
 from tests.test_torch_sharding import free_port, spawn
@@ -162,11 +163,12 @@ def test_tiny_store_regrows_to_the_default_sweep(wog_fetch):
     in the same order; progress still sees each row once, with its own
     edge count."""
     want = sweep_engine(wog_fetch).sweep(THR)
-    seen, tm = [], {}
+    seen, rec = [], {}
     eng = sweep_engine(wog_fetch, TINY)
     assert eng.new_store().capacity == TINY
-    got = eng.sweep(THR, progress=lambda lo, hi, n, dt: seen.append((lo, n)), timings=tm)
-    assert tm["rerun_rows"] > 0 and want.n_edges > 10 * TINY
+    with recording(rec):
+        got = eng.sweep(THR, progress=lambda lo, hi, n, dt: seen.append((lo, n)))
+    assert rec["counters"]["rows_reswept"] > 0 and want.n_edges > 10 * TINY
     assert_equal_edges(got, want)
     assert [lo for lo, _ in seen] == list(range(0, 700, TILE))
     rows = np.asarray(want.ipos) // TILE * TILE
@@ -305,6 +307,7 @@ from spydrpick_torch.core.alignment import Alignment
 from spydrpick_torch.engine.solver import EngineConfig, MIEngine
 from spydrpick_torch.parallel.distributed import initialize_distributed, shutdown
 from spydrpick_torch.parallel.mesh import ShardedEngineView, make_mesh, sharded_sweep
+from spydrpick_torch.utils.profiling import recording
 
 addr, world, rank, k, inp, out = sys.argv[1:]
 initialize_distributed(addr, int(world), int(rank))
@@ -317,11 +320,12 @@ for wog in ("outliers", "full"):
     for cap in (1 << 24, int(z["tiny"])):
         cfg = EngineConfig(tile=128, wog_fetch=wog, store_capacity=cap)
         eng = ShardedEngineView(al, cfg, mesh) if int(k) > 1 else MIEngine(al, cfg)
-        tm = {}
-        e = sharded_sweep(eng, float(z["thr"]), mesh, timings=tm)
+        rec = {}
+        with recording(rec):
+            e = sharded_sweep(eng, float(z["thr"]), mesh)
         for f in ("ipos", "jpos", "mi", "mi_wog", "colmax"):
             res[f"{wog}/{cap}/{f}"] = getattr(e, f)
-        res[f"{wog}/{cap}/rerun"] = np.array(tm["rerun_rows"])
+        res[f"{wog}/{cap}/rerun"] = np.array(rec["counters"]["rows_reswept"])
 np.savez(f"{out}/rank{rank}.npz", **res)
 shutdown()
 '''

@@ -116,6 +116,7 @@ WORKER = textwrap.dedent('''
     from spydrpick_torch.parallel.distributed import initialize_distributed, shutdown
     from spydrpick_torch.parallel.mesh import (ShardedEngineView, checkpoint_key, make_mesh,
                                                sharded_sweep)
+    from spydrpick_torch.utils.profiling import recording
 
     class Killed(Exception):
         pass
@@ -146,17 +147,24 @@ WORKER = textwrap.dedent('''
                            store_capacity=int(store))
         return ShardedEngineView(al, cfg, mesh) if k > 1 else MIEngine(al, cfg)
 
-    def put(name, edges, tm=None):
+    def put(name, edges, rows=None):
         for f in ("ipos", "jpos", "mi", "mi_wog", "colmax"):
             res[f"{name}/{f}"] = getattr(edges.sort_desc(), f)
-        if tm is not None:
-            res[name + "/n_rows"] = np.array(tm["n_rows"])
-            res[name + "/rerun_rows"] = np.array(tm["rerun_rows"])
+        if rows is not None:
+            res[name + "/n_rows"] = np.array(rows["n_rows"])
+            res[name + "/rerun_rows"] = np.array(rows["rerun_rows"])
+
+    def recorded(*args, **kw):
+        """sharded_sweep(*args, **kw), recorded: its edges and the block-rows
+        this rank swept (progress sees each once) and swept again."""
+        rec, seen = {}, []
+        with recording(rec):
+            edges = sharded_sweep(*args, progress=lambda lo, hi, n, dt: seen.append(lo), **kw)
+        return edges, {"n_rows": len(seen), "rerun_rows": rec["counters"]["rows_reswept"]}
 
     for case in cases.split(","):
         path = os.path.join(out, case + ".ckpt")
-        tm = {}
-        put(case + "/clean", sharded_sweep(engine(case), thr, mesh, timings=tm), tm)
+        put(case + "/clean", *recorded(engine(case), thr, mesh))
         progress, _ = killer(kill)
         try:
             sharded_sweep(engine(case), thr, mesh, progress=progress, checkpoint_path=path,
@@ -171,9 +179,8 @@ WORKER = textwrap.dedent('''
         res[case + "/snap_ipos"] = np.concatenate(snap.ipos) if snap.ipos else np.zeros(0)
         if rank == 0 and k == 1:
             shutil.copy(path, os.path.join(out, case + ".cross"))
-        tm = {}
-        put(case + "/resumed", sharded_sweep(eng, thr, mesh, checkpoint_path=path,
-                                             checkpoint_every=every, timings=tm), tm)
+        put(case + "/resumed", *recorded(eng, thr, mesh, checkpoint_path=path,
+                                         checkpoint_every=every))
         dist.barrier()
         res[case + "/file_left"] = np.array(os.path.exists(path))
         one = os.path.join(os.path.dirname(inp), case + ".single.ckpt")
@@ -182,9 +189,8 @@ WORKER = textwrap.dedent('''
             if rank == 0:
                 shutil.copy(one, mine)
             dist.barrier()
-            tm = {}
-            put(case + "/from_single", sharded_sweep(engine(case), thr, mesh,
-                                                     checkpoint_path=mine, timings=tm), tm)
+            put(case + "/from_single", *recorded(engine(case), thr, mesh,
+                                                 checkpoint_path=mine))
     assert "jax" not in sys.modules and "spydrpick_tpu" not in sys.modules
     np.savez(os.path.join(out, f"rank{rank}.npz"), **res)
     shutdown()

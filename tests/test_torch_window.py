@@ -42,6 +42,7 @@ from spydrpick_torch.engine.solver import (
 )
 from spydrpick_torch.ops.compact import EdgeStore, row_select_plain
 from spydrpick_torch.ops.mi_kernels import k_major
+from spydrpick_torch.utils.profiling import recording
 
 from tests.conftest import random_alignment
 from tests.test_torch_checkpoint import Killed, killer
@@ -110,21 +111,34 @@ def full_width():
 @pytest.mark.parametrize("variant", list(VARIANTS))
 @pytest.mark.parametrize("wog", WOGS)
 @pytest.mark.parametrize("mode", list(MODES))
-def test_windowed_and_codes_sweeps_equal_the_full_width_sweep(full_width, mode, wog, variant):
+def test_windowed_and_codes_sweeps_equal_the_full_width_sweep(full_width, mode, wog, variant,
+                                                              monkeypatch):
     al, mxu, thr, want = full_width[mode, wog]
     eng = MIEngine(al, EngineConfig(tile=TILE, mxu_int8=mxu, wog_fetch=wog, **VARIANTS[variant]),
                    device="cpu")
     st = eng.statics
     assert st.onehot_codes == (VARIANTS[variant]["onehot_storage"] == "codes")
     assert st.int8_mode == {"unit": "unit", "fixed14": "fixed14", "bf16": "off"}[mode]
-    tm = {}
-    got = eng.sweep(thr, timings=tm)
+    expansions = []
+    expand_codes = solver.expand_codes
+
+    def spy(*args, **kwargs):
+        expansions.append(args[1:3])
+        return expand_codes(*args, **kwargs)
+    monkeypatch.setattr(solver, "expand_codes", spy)
+    rec = {}
+    with recording(rec):
+        got = eng.sweep(thr)
     assert want.n_edges > 1000 and (got.mi_wog != got.mi).any()
     assert_same_edges(got, want)
-    assert tm["n_items"] == sum(len(eng.row_windows(r)) for r in range(0, st.L, TILE))
-    assert ("expand_s" in tm) == st.onehot_codes
+    rows = range(0, st.L, TILE)
+    n_items = rec["counters"]["sweep_items"]
+    assert n_items == sum(len(eng.row_windows(r)) for r in rows)
+    assert rec["counters"]["rows_reswept"] == 0
+    # codes storage expands each item's operands on use; dense storage never
+    assert bool(expansions) == st.onehot_codes
     if st.row_window:
-        assert tm["n_items"] > tm["n_rows"]
+        assert n_items > len(rows)
 
 
 def test_row_windows_cover_each_row_from_its_diagonal():
@@ -174,7 +188,7 @@ def test_port_sweeps_the_jax_codes_engines_device_data():
 
 def wide_columns(cols, S=256, L=998_400, rows=16):
     """Columns ``cols`` of scripts/bench_1m_width.py's S x L alignment and
-    its weights: ``stage_profile.bench_alignment(S, L, 0)``'s numbers,
+    its weights: ``chip_smoke.bench_alignment(S, L, 0)``'s numbers,
     drawn ``rows`` samples at a time so that the whole alignment is never
     held."""
     rng = np.random.default_rng(0)
@@ -378,9 +392,12 @@ def test_windowed_kill_then_resume_equals_clean_run(tmp_path, storage):
     other = "codes" if storage == "dense" else "dense"
     resumed = MIEngine(al, dataclasses.replace(cfg, onehot_storage=other), device="cpu")
     progress, seen = killer(-1)
-    tm = {}
-    got = resumed.sweep(0.02, progress=progress, checkpoint_path=path, timings=tm)
-    assert seen == [256, 384, 512, 640] and tm["n_rows"] == 4 and tm["n_items"] == 6
+    rec = {}
+    with recording(rec):
+        got = resumed.sweep(0.02, progress=progress, checkpoint_path=path)
+    # the 4 rows not in the snapshot, 6 items in all, none swept again
+    assert seen == [256, 384, 512, 640] and rec["counters"]["sweep_items"] == 6
+    assert rec["counters"]["rows_reswept"] == 0
     assert_same_edges(got, clean)
     assert not os.path.exists(path)
 
